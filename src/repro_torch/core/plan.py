@@ -1,0 +1,556 @@
+"""PackedPlan — the mask-compilation pipeline (paper Fig. 1, Phase 3), the
+feed-forward half of ``repro.core.plan``.
+
+One place lowers a dropout-equipped network to a mask-based BayesNN served
+with mask-zero skipping (packed per-sample dense weights, §V-C) and the
+batch-level sample schedule (§V-D). It owns BN folding, the ``kept_indices``
+gathers, and kernel dispatch: every relu :class:`PackedPair` on a shared
+input runs through ``kernels/masked_ffn`` (per-op executor), and the whole
+chain runs through ``kernels/fused_plan`` (fused executor). Dispatch is by
+tensor device: CPU tensors take the plain PyTorch versions, CUDA tensors the
+hand-written kernels.
+
+IR: a :class:`PackedPlan` is an ordered list of ops over a running hidden
+state ``h`` (``[B, D]`` until the first packed op introduces the sample axis,
+``[G·N, B, D]`` after it):
+
+  =====================  ====================================================
+  :class:`SharedDense`   ``h @ w + b`` with weights shared across samples
+  :class:`PackedPair`    ``act(h @ w1p[n] + b1p[n]) @ w2p[n] + b2`` — the
+                         masked_ffn kernel shape
+  :class:`Activation`    elementwise nonlinearity
+  :class:`OutputHead`    final (optionally per-mask in-gathered) dense +
+                         output activation
+  =====================  ====================================================
+
+Stacked sub-networks (IVIM's 4 identical chains) ride the sample axis:
+``groups=G`` flattens subnet × mask into ``G·N`` weight sets applied to one
+shared batch. The executors un-flatten at the end and apply the clinical
+range conversion C(.) when ``out_ranges`` is set.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import functools
+from typing import Any, Callable
+
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.core import packing
+from repro_torch.core import scheduler as sched_lib
+from repro_torch.kernels.fused_plan import ops as fp_ops
+from repro_torch.kernels.fused_plan import ref as fused_ref
+from repro_torch.kernels.fused_plan.ref import FusedPlanUnsupported
+from repro_torch.kernels.masked_ffn import ops as mffn_ops
+
+Params = dict[str, Any]
+
+__all__ = ["SharedDense", "PackedPair", "Activation", "OutputHead",
+           "PackedPlan", "Precision", "activation_fn", "tree_map",
+           "fold_bn_dense", "fold_bn_ivim", "compile_ivim",
+           "compile_masked_ffn", "execute", "lower_fused", "execute_fused",
+           "fused_executor", "FusedPlanUnsupported", "fused_lowering_counts"]
+
+activation_fn = fused_ref.act_fn
+
+
+@dataclasses.dataclass(frozen=True)
+class Precision:
+    """Serving precision of a :class:`PackedPlan`: the storage dtype of the
+    packed dense weights. Only "fp32" runs in this port so far."""
+    weights: str = "fp32"
+
+    def __post_init__(self) -> None:
+        if self.weights == "int8":
+            raise ValueError("int8 weights arrive with the port's int8 slice "
+                             "(ROADMAP queue 1, item 10)")
+        if self.weights != "fp32":
+            raise ValueError(f"unknown weight precision {self.weights!r}")
+
+
+# ---------------------------------------------------------------------------
+# ops (static metadata; weights live in plan.params[op.name])
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SharedDense:
+    """Sample-independent dense: params {w [D, D2], b [D2]?}."""
+    name: str
+    d_in: int
+    d_out: int
+    activation: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedPair:
+    """Fused 2-matrix packed FFN over per-mask gathered weights.
+
+    params: w1p [Ne, d_in, keep], b1p [Ne, keep], w2p [Ne, keep, d_out] and
+    either b2 [d_out] (shared) or b2p [Ne, d_out] (the pair's output units
+    are themselves mask-gathered). ``d_in``/``d_out`` are the packed operand
+    widths; ``d_in_full``/``d_out_full``/``hidden`` the unpacked ones.
+    """
+    name: str
+    d_in: int
+    hidden: int
+    keep: int
+    d_out: int
+    d_in_full: int = 0
+    d_out_full: int = 0
+    activation: str = "relu"
+
+    def __post_init__(self) -> None:
+        if self.d_in_full == 0:
+            object.__setattr__(self, "d_in_full", self.d_in)
+        if self.d_out_full == 0:
+            object.__setattr__(self, "d_out_full", self.d_out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Activation:
+    """Elementwise nonlinearity between packed ops (no params)."""
+    fn: str
+    name: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class OutputHead:
+    """Terminal dense + output activation. per_mask=True -> params
+    {wp [Ne, d_in, d_out], bp [Ne, d_out] | b [d_out]} (input units are
+    mask-gathered); else {w [d_in, d_out], b [d_out]?}."""
+    name: str
+    d_in: int
+    d_out: int
+    d_in_full: int = 0
+    activation: str | None = None
+    per_mask: bool = True
+
+    def __post_init__(self) -> None:
+        if self.d_in_full == 0:
+            object.__setattr__(self, "d_in_full", self.d_in)
+
+
+Op = SharedDense | PackedPair | Activation | OutputHead
+
+
+def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _first_leaf(tree: Any) -> torch.Tensor:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# the plan
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PackedPlan:
+    """Compiled serving program: ops + packed weights + sample schedule.
+
+    ``groups`` stacked sub-networks share the kernel sample axis (row order
+    group-major: row ``g * n_masks + n``); ``out_ranges`` is the optional
+    clinical conversion C(.) applied per output column.
+    """
+    ops: tuple[Op, ...]
+    params: Params
+    n_masks: int
+    groups: int = 1
+    schedule: sched_lib.Schedule = sched_lib.Schedule("batch")
+    out_ranges: tuple[tuple[float, float], ...] | None = None
+    precision: Precision = Precision()
+
+    @property
+    def sample_axis(self) -> int:
+        """Rows of the kernel's sample axis (groups × masks)."""
+        return self.groups * self.n_masks
+
+    @property
+    def pairs(self) -> tuple[PackedPair, ...]:
+        return tuple(op for op in self.ops if isinstance(op, PackedPair))
+
+    @property
+    def device(self) -> torch.device:
+        return _first_leaf(self.params).device
+
+    def to(self, device: torch.device | str) -> "PackedPlan":
+        """The same plan with its weights on ``device`` (itself if they are
+        already there)."""
+        if self.device == torch.device(device):
+            return self
+        return dataclasses.replace(
+            self, params=tree_map(lambda t: t.to(device), self.params))
+
+    def slot_schedule(self, max_slots: int) -> sched_lib.SlotSchedule:
+        """The serving-pool row layout this plan's sample axis maps onto."""
+        return sched_lib.SlotSchedule(n_masks=self.n_masks,
+                                      max_slots=max_slots)
+
+    def traffic(self, batch: int, bytes_per_el: int = 4,
+                schedule: sched_lib.Schedule | None = None, *,
+                fused: bool = False, moments: bool = False
+                ) -> sched_lib.TrafficModel:
+        """Modeled device-memory traffic and FLOPs of one batch, from op
+        metadata.
+
+        ``fused=False``: summed pair traffic under a schedule (default: the
+        plan's own) — each per-op launch reads its input and writes its
+        output. ``fused=True`` prices the whole-plan kernel: every packed
+        weight set crosses once per sample row (``weight_loads =
+        sample_axis``) and inter-layer activations stay on chip. With
+        ``moments=True`` the input batch crosses once and only (mean, std)
+        come back; in samples mode the input is priced once per row and the
+        full ``[N, B, d_out]`` tensor is written. Shared prefix FLOPs are
+        priced once.
+        """
+        n = self.sample_axis
+        if not fused:
+            schedule = schedule or self.schedule
+            w = a = f = loads = 0
+            for op in self.pairs:
+                tm = sched_lib.traffic_model(schedule, batch, n, op.d_in,
+                                             op.keep, op.d_out, bytes_per_el)
+                w += tm.weight_bytes
+                a += tm.act_bytes
+                f += tm.flops
+                loads += tm.weight_loads
+            return sched_lib.TrafficModel(weight_bytes=w, act_bytes=a,
+                                          flops=f, weight_loads=loads)
+        w_el = flops = 0
+        d_first = d_last = None
+        for op in self.ops:
+            if isinstance(op, SharedDense):
+                w_el += op.d_in * op.d_out + op.d_out
+                flops += 2 * batch * op.d_in * op.d_out
+            elif isinstance(op, PackedPair):
+                w_el += n * (op.d_in * op.keep + op.keep * op.d_out
+                             + op.keep + op.d_out)
+                flops += 2 * n * batch * (op.d_in * op.keep
+                                          + op.keep * op.d_out)
+            elif isinstance(op, OutputHead):
+                rows = n if op.per_mask else 1
+                w_el += rows * (op.d_in * op.d_out + op.d_out)
+                flops += 2 * rows * batch * op.d_in * op.d_out
+            else:
+                continue
+            if d_first is None:
+                d_first = op.d_in
+            d_last = op.d_out
+        in_el = batch * d_first * (1 if moments else n)
+        out_el = (2 * batch * self.groups * d_last if moments
+                  else n * batch * d_last)
+        return sched_lib.TrafficModel(
+            weight_bytes=w_el * bytes_per_el,
+            act_bytes=(in_el + out_el) * bytes_per_el, flops=flops,
+            weight_loads=n)
+
+
+# ---------------------------------------------------------------------------
+# BN folding
+# ---------------------------------------------------------------------------
+
+
+def fold_bn_dense(fc: Params, bn: Params, st: Params,
+                  eps: float = 1e-5) -> Params:
+    """Fold inference-mode batchnorm into the preceding dense — exact at
+    eval time: returns {w', b'} with w' = w·γ/√(σ²+ε). Leaves may carry
+    leading stacked axes ([G, D, D2] weights with [G, D2] statistics)."""
+    inv = bn["gamma"] * torch.rsqrt(st["var"] + eps)
+    return {"w": fc["w"] * inv[..., None, :],
+            "b": (fc["b"] - st["mean"]) * inv + bn["beta"]}
+
+
+def fold_bn_ivim(params: Params, state: Params) -> Params:
+    """IVIM-shaped folding: fc1/fc2 carry bn1/bn2, all leaves stacked [G, ...]
+    over sub-networks. Returns params with plain fc1/fc2 and no bn."""
+    out = {k: v for k, v in params.items() if k not in ("bn1", "bn2")}
+    out["fc1"] = fold_bn_dense(params["fc1"], params["bn1"], state["bn1"])
+    out["fc2"] = fold_bn_dense(params["fc2"], params["bn2"], state["bn2"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# compilers
+# ---------------------------------------------------------------------------
+
+
+def _per_group(fn: Callable[[torch.Tensor], torch.Tensor],
+               leaf: torch.Tensor) -> torch.Tensor:
+    """Apply a packer to each sub-network's slice of a stacked [G, ...] leaf
+    -> [G, N, ...]."""
+    return torch.stack([fn(sub) for sub in leaf])
+
+
+def compile_masked_ffn(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                       b2: torch.Tensor, masks) -> PackedPlan:
+    """A bare masked relu-FFN (the masked_ffn kernel's own shape):
+    relu(x @ w1 + b1) · mask[n] @ w2 + b2 -> one PackedPair."""
+    idx = packing.kept_indices(masks)
+    params = {"pair": {"w1p": packing.pack_out_dim(w1, idx),
+                       "b1p": packing.pack_out_dim(b1, idx),
+                       "w2p": packing.pack_in_dim(w2, idx),
+                       "b2": b2}}
+    op = PackedPair("pair", d_in=w1.shape[0], hidden=w1.shape[1],
+                    keep=idx.shape[1], d_out=w2.shape[1])
+    return PackedPlan(ops=(op,), params=params, n_masks=idx.shape[0])
+
+
+@torch.no_grad()
+def compile_ivim(cfg, params: Params, state: Params) -> PackedPlan:
+    """uIVIM-NET -> PackedPlan (cfg: ``repro_torch.ivim.model.IvimConfig``).
+
+    Folds BN, gathers the fc1 -> fc2 -> enc chain (mask1 on fc1's outputs,
+    mask2 on fc2's), and flattens the 4 sub-networks onto the kernel sample
+    axis: w1p [4N, Nb, K1], w2p [4N, K1, K2], wp [4N, K2, 1].
+    """
+    if not cfg.bayesian:
+        raise ValueError("packing requires a Masksembles model")
+    p = fold_bn_ivim(params, state) if cfg.use_batchnorm else params
+    idx1 = packing.kept_indices(p["mask1"])
+    idx2 = packing.kept_indices(p["mask2"])
+    k1, k2 = idx1.shape[1], idx2.shape[1]
+    groups = p["fc1"]["w"].shape[0]
+
+    def flat(x: torch.Tensor) -> torch.Tensor:      # [G, N, ...] -> [G·N, ...]
+        return x.reshape((-1,) + tuple(x.shape[2:])).detach()
+
+    def out1(leaf):
+        return packing.pack_out_dim(leaf, idx1)
+
+    def out2(leaf):
+        return packing.pack_out_dim(leaf, idx2)
+
+    body = {"w1p": flat(_per_group(out1, p["fc1"]["w"])),   # [G·N, Nb, K1]
+            "b1p": flat(_per_group(out1, p["fc1"]["b"])),   # [G·N, K1]
+            "w2p": flat(_per_group(
+                lambda w: packing.pack_pair_dims(w, idx1, idx2),
+                p["fc2"]["w"])),                            # [G·N, K1, K2]
+            "b2p": flat(_per_group(out2, p["fc2"]["b"]))}   # [G·N, K2]
+    head = {"wp": flat(_per_group(
+                lambda w: packing.pack_in_dim(w, idx2),
+                p["enc"]["w"])),                            # [G·N, K2, 1]
+            "bp": p["enc"]["b"].repeat_interleave(
+                idx1.shape[0], dim=0).detach()}             # group-major
+    ops = (
+        PackedPair("body", d_in=cfg.width, hidden=cfg.width, keep=k1,
+                   d_out=k2, d_out_full=cfg.width, activation="relu"),
+        Activation("relu"),
+        OutputHead("head", d_in=k2, d_in_full=cfg.width, d_out=1,
+                   activation="sigmoid", per_mask=True),
+    )
+    return PackedPlan(ops=ops, params={"body": body, "head": head},
+                      n_masks=cfg.n_masks, groups=groups,
+                      out_ranges=tuple(cfg.out_ranges))
+
+
+# ---------------------------------------------------------------------------
+# per-op executor
+# ---------------------------------------------------------------------------
+
+
+def _run_pair(op: PackedPair, p: Params, h: torch.Tensor) -> torch.Tensor:
+    """One PackedPair. A shared input [B, D] with relu goes through the
+    masked_ffn kernel (b2p is added after it, as a per-sample bias); a
+    per-sample input or another activation takes the batched-product
+    form (same sample-major contraction order)."""
+    if h.ndim == 2 and op.activation == "relu":
+        b2 = p.get("b2")
+        if b2 is None:
+            b2 = torch.zeros(p["w2p"].shape[-1], dtype=h.dtype,
+                             device=h.device)
+        y = mffn_ops.masked_ffn(h, p["w1p"], p["b1p"], p["w2p"], b2)
+        if "b2p" in p:
+            y = y + p["b2p"][:, None, :]
+        return y
+    act = activation_fn(op.activation)
+    hm = act(torch.matmul(h, p["w1p"]) + p["b1p"][:, None, :])
+    y = torch.matmul(hm, p["w2p"])
+    if "b2p" in p:
+        return y + p["b2p"][:, None, :]
+    if "b2" in p:
+        return y + p["b2"]
+    return y
+
+
+def execute(plan: PackedPlan, x: torch.Tensor, *,
+            device: torch.device | str | None = None) -> torch.Tensor:
+    """Run a PackedPlan on a batch x [B, D] -> samples [N, B, d_out], one op
+    at a time (one masked_ffn launch per relu PackedPair). ``device=None``
+    runs on the card."""
+    dev = device_lib.resolve(device)
+    plan = plan.to(dev)
+    h = x.to(dev).contiguous()
+    for op in plan.ops:
+        if isinstance(op, Activation):
+            h = activation_fn(op.fn)(h)
+        elif isinstance(op, SharedDense):
+            p = plan.params[op.name]
+            h = h @ p["w"]
+            if "b" in p:
+                h = h + p["b"]
+            if op.activation:
+                h = activation_fn(op.activation)(h)
+        elif isinstance(op, PackedPair):
+            h = _run_pair(op, plan.params[op.name], h)
+        elif isinstance(op, OutputHead):
+            p = plan.params[op.name]
+            if op.per_mask:
+                h = torch.matmul(h, p["wp"])     # [N,B,k] x [N,k,o]
+                if "bp" in p:
+                    h = h + p["bp"][:, None, :]
+            else:
+                h = h @ p["w"]
+            if "b" in p:
+                h = h + p["b"]
+            if op.activation:
+                h = activation_fn(op.activation)(h)
+        else:
+            raise TypeError(f"unknown plan op {op!r}")
+    if h.ndim == 2:                     # no packed ops: one degenerate sample
+        h = h[None]
+    return _finalize(plan, h)
+
+
+def _c_range(plan: PackedPlan, like: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """C(.)'s (lo, hi) rows on ``like``'s device."""
+    return _range_rows(plan.out_ranges, like.device, like.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _range_rows(out_ranges: tuple[tuple[float, float], ...],
+                device: torch.device, dtype: torch.dtype
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    # Made once per (ranges, device): building them per chunk would put two
+    # blocking host-to-card copies on every chunk of a streamed volume.
+    lo = torch.tensor([r[0] for r in out_ranges], dtype=dtype, device=device)
+    hi = torch.tensor([r[1] for r in out_ranges], dtype=dtype, device=device)
+    return lo, hi
+
+
+def _finalize(plan: PackedPlan, h: torch.Tensor) -> torch.Tensor:
+    """Executor epilogue: un-flatten the kernel sample axis and apply C(.)."""
+    if plan.groups > 1:                 # [G·N, B, Do] -> [N, B, G·Do]
+        g, n = plan.groups, plan.n_masks
+        b, do = h.shape[1], h.shape[2]
+        h = h.reshape(g, n, b, do).movedim(0, 2).reshape(n, b, g * do)
+    if plan.out_ranges is not None:     # C(.): clinical range conversion
+        lo, hi = _c_range(plan, h)
+        h = lo + h * (hi - lo)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# fused whole-plan executor (kernels/fused_plan)
+# ---------------------------------------------------------------------------
+
+
+def lower_fused(plan: PackedPlan
+                ) -> tuple[fused_ref.FusedSpec, tuple[torch.Tensor, ...]]:
+    """Lower the op chain to the fused kernel IR: ``(spec, params)`` with
+    params in ``param_slots`` order. A trailing :class:`Activation` fuses
+    into the preceding dense step; a PackedPair lowers to two dense steps
+    (its hidden activation stays on chip). Raises
+    :class:`FusedPlanUnsupported` for op kinds with no fused form."""
+    steps: list[fused_ref.FusedStep] = []
+    params: list[torch.Tensor] = []
+    for op in plan.ops:
+        if isinstance(op, Activation):
+            if steps and steps[-1].kind == "dense" \
+                    and steps[-1].activation is None:
+                steps[-1] = dataclasses.replace(steps[-1], activation=op.fn)
+            else:
+                steps.append(fused_ref.FusedStep("act", activation=op.fn))
+            continue
+        p = plan.params.get(getattr(op, "name", ""))
+        if isinstance(op, SharedDense):
+            steps.append(fused_ref.FusedStep(
+                "dense", op.activation, shared_bias="b" in p,
+                d_in=op.d_in, d_out=op.d_out))
+            params += [p["w"]] + ([p["b"]] if "b" in p else [])
+        elif isinstance(op, PackedPair):
+            steps.append(fused_ref.FusedStep(
+                "dense", op.activation, per_sample=True, sample_bias=True,
+                d_in=op.d_in, d_out=op.keep))
+            params += [p["w1p"], p["b1p"]]
+            steps.append(fused_ref.FusedStep(
+                "dense", None, per_sample=True, shared_bias="b2" in p,
+                sample_bias="b2p" in p, d_in=op.keep, d_out=op.d_out))
+            params += [p[k] for k in ("w2p", "b2", "b2p") if k in p]
+        elif isinstance(op, OutputHead):
+            steps.append(fused_ref.FusedStep(
+                "dense", op.activation, per_sample=op.per_mask,
+                shared_bias="b" in p, sample_bias="bp" in p,
+                d_in=op.d_in, d_out=op.d_out))
+            params.append(p["wp"] if op.per_mask else p["w"])
+            params += [p[k] for k in ("b", "bp") if k in p]
+        else:
+            raise FusedPlanUnsupported(f"op {op!r} has no fused lowering")
+    dense = [s for s in steps if s.kind == "dense"]
+    if not dense:
+        raise FusedPlanUnsupported("fused chain has no dense step")
+    spec = fused_ref.FusedSpec(steps=tuple(steps), n_rows=plan.sample_axis,
+                               n_masks=plan.n_masks, groups=plan.groups,
+                               d_in=dense[0].d_in, d_out=dense[-1].d_out)
+    return spec, tuple(params)
+
+
+#: Lowerings of the fused executor, keyed by ``(spec, device type,
+#: moments)``: a chunk-streaming caller lowers once and serves every chunk
+#: from the one packed parameter buffer, so one volume leaves its key at 1.
+fused_lowering_counts: collections.Counter = collections.Counter()
+
+
+def fused_executor(plan: PackedPlan, *, moments: bool = False,
+                   device: torch.device | str | None = None
+                   ) -> Callable[[torch.Tensor], Any]:
+    """Lower once, serve many: returns ``x -> fused result``.
+
+    Raises :class:`FusedPlanUnsupported` immediately when the op chain has
+    no fused lowering; the kernel's shared-memory residency guard fires
+    later, from the first ``apply`` on a CUDA tensor — callers that want
+    the per-op fallback catch around that first call too.
+    """
+    dev = device_lib.resolve(device)
+    plan = plan.to(dev)
+    spec, params = lower_fused(plan)
+    fp = fp_ops.pack(spec, params)
+    fused_lowering_counts[(spec, dev.type, moments)] += 1
+
+    def apply(x: torch.Tensor):
+        x = x.to(dev).contiguous()
+        if not moments:
+            return _finalize(plan, fp_ops.fused_samples(fp, x))
+        mean, std = fp_ops.fused_moments(fp, x)   # [B, G·do], group-major
+        if plan.out_ranges is not None:  # C(.) is affine: commutes with E[.]
+            lo, hi = _c_range(plan, mean)
+            mean = lo + mean * (hi - lo)
+            std = std * (hi - lo).abs()
+        return mean, std
+
+    return apply
+
+
+def execute_fused(plan: PackedPlan, x: torch.Tensor, *, moments: bool = False,
+                  device: torch.device | str | None = None):
+    """Run the whole plan in ONE kernel launch (kernels/fused_plan).
+
+    x [B, D] -> samples [N, B, d_out], or ``moments=True`` ->
+    (mean [B, d_out], std [B, d_out]) reduced over the mask axis inside the
+    kernel (running Welford mean/M2), so the full sample tensor is never
+    materialized. Matches ``execute`` / ``uncertainty.predictive_moments(
+    execute(...))`` to fp32 tolerance. Raises :class:`FusedPlanUnsupported`
+    when the plan has no fused form or its per-row footprint exceeds the
+    shared-memory guard (callers fall back to :func:`execute`).
+    """
+    return fused_executor(plan, moments=moments, device=device)(x)

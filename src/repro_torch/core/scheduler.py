@@ -1,0 +1,94 @@
+"""Sample scheduling: sampling-level vs batch-level (paper Fig. 5).
+
+A mask-based BayesNN evaluates every input under N mask-samples. Two loop
+orders compute identical results with very different weight traffic:
+
+* **sampling-level** (the paper's baseline): voxel-outer, sample-inner —
+  each voxel chunk re-reads all N weight sets -> ``N × ceil(B/chunk)``
+  weight loads per batch.
+* **batch-level** (the paper's scheme): sample-outer, batch-inner — each
+  weight set is read once per batch -> ``N`` weight loads.
+
+The port keeps what ``core/plan.py`` consumes: the chunk partition of the
+serving engine, the schedule and slot-layout records, and the analytic
+traffic model the plan's byte/FLOP accounting is built from.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+__all__ = ["Schedule", "SlotSchedule", "chunk_bounds", "weight_load_counts",
+           "TrafficModel", "traffic_model"]
+
+
+def chunk_bounds(n: int, chunk: int) -> tuple[tuple[int, int], ...]:
+    """Partition ``n`` voxels into fixed-``chunk`` slices: ``(start, stop)``
+    pairs, the last slice short when ``chunk`` does not divide ``n``. The
+    serving engine zero-pads each slice to exactly ``chunk`` rows, so every
+    launch sees one shape."""
+    if n < 1 or chunk < 1:
+        raise ValueError(f"chunk_bounds needs n >= 1, chunk >= 1 "
+                         f"(got n={n}, chunk={chunk})")
+    return tuple((s, min(s + chunk, n)) for s in range(0, n, chunk))
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """Execution schedule for N-sample inference.
+
+    kind: 'sampling' (voxel-outer) or 'batch' (sample-outer, paper's scheme).
+    chunk: voxel-chunk size of the sampling-level loop.
+    """
+    kind: str = "batch"
+    chunk: int = 64
+
+    def __post_init__(self) -> None:
+        if self.kind not in ("sampling", "batch"):
+            raise ValueError(f"unknown schedule kind {self.kind!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotSchedule:
+    """Row layout of a serving pool: ``n_masks * max_slots`` rows,
+    mask-major (row ``m * max_slots + s`` is mask-sample ``m`` of slot
+    ``s``). The pool's own helpers arrive with the server (slice 2)."""
+    n_masks: int
+    max_slots: int
+
+    def __post_init__(self) -> None:
+        if self.n_masks < 1 or self.max_slots < 1:
+            raise ValueError(f"bad slot schedule {self}")
+
+
+def weight_load_counts(schedule: Schedule, batch: int, n_samples: int) -> int:
+    """Paper §V-D: sampling-level = N × ceil(B/chunk) loads, batch-level =
+    N."""
+    if schedule.kind == "batch":
+        return n_samples
+    return n_samples * -(-batch // schedule.chunk)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrafficModel:
+    """Device-memory traffic + FLOPs of one N-sample evaluation."""
+    weight_bytes: int          # total weight bytes moved from device memory
+    act_bytes: int             # activation bytes (in + out, once)
+    flops: int                 # dense MACs*2 over packed shapes
+    weight_loads: int          # paper's load-count metric
+
+
+def traffic_model(schedule: Schedule, batch: int, n_samples: int,
+                  d_in: int, k_hidden: int, d_out: int,
+                  bytes_per_el: int = 4) -> TrafficModel:
+    """Analytic traffic of a packed 2-layer FFN under a schedule: the
+    per-sample packed weight set is w1p [d_in, K] + w2p [K, d_out] (+ its
+    biases); the schedule decides how many times it is read."""
+    per_sample_w = (d_in * k_hidden + k_hidden * d_out
+                    + k_hidden + d_out) * bytes_per_el
+    loads = weight_load_counts(schedule, batch, n_samples)
+    weight_bytes = per_sample_w * loads
+    act_bytes = (batch * d_in + n_samples * batch * d_out) * bytes_per_el
+    flops = 2 * n_samples * batch * (d_in * k_hidden + k_hidden * d_out)
+    return TrafficModel(weight_bytes=weight_bytes, act_bytes=act_bytes,
+                        flops=flops, weight_loads=loads)

@@ -1,0 +1,99 @@
+"""Uncertainty aggregation + the paper's evaluation metrics.
+
+Paper §VI-B: for every input, the N mask-samples give predictions whose
+*mean* is the final estimate and whose *std* is the uncertainty; the reported
+metric is relative variance ``std/mean``. The uncertainty *requirement*
+(§III Phase 1) is monotonicity: less input noise (higher SNR) => lower RMSE
+and lower uncertainty.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Sequence
+
+import torch
+
+__all__ = ["REL_UNC_EPS", "predictive_moments", "relative_uncertainty",
+           "rmse", "UncertaintyRequirements", "RequirementReport",
+           "check_requirements"]
+
+#: Floor on |mean| in the relative-uncertainty ratio std/|mean| — a pure
+#: divide-by-zero guard, the reference's value.
+REL_UNC_EPS = 1e-12
+
+
+def predictive_moments(samples: torch.Tensor, axis: int = 0
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, std) over the sample axis, two-pass; std uses ddof=0
+    (population), matching the reference Masksembles evaluation."""
+    mean = samples.mean(dim=axis)
+    std = samples.std(dim=axis, correction=0)
+    return mean, std
+
+
+def relative_uncertainty(samples: torch.Tensor, axis: int = 0,
+                         eps: float = REL_UNC_EPS) -> torch.Tensor:
+    """Paper's metric: std / |mean| per prediction (relative variance)."""
+    mean, std = predictive_moments(samples, axis=axis)
+    return std / mean.abs().clamp_min(eps)
+
+
+def rmse(pred: torch.Tensor, target: torch.Tensor, axis=None) -> torch.Tensor:
+    sq = (pred - target) ** 2
+    return torch.sqrt(sq.mean() if axis is None else sq.mean(dim=axis))
+
+
+@dataclasses.dataclass(frozen=True)
+class UncertaintyRequirements:
+    """Phase-1 requirements (paper §III): formulated before training, used as
+    the accept/iterate gate between Phase 2 and Phase 3.
+
+    monotone_rmse / monotone_uncertainty: RMSE and mean relative uncertainty
+      must be non-increasing as SNR increases (paper Figs. 6/7), up to
+      ``tolerance`` of slack to absorb eval noise.
+    max_rel_uncertainty: optional cap on mean relative uncertainty at the
+      cleanest SNR (a confident model on clean data).
+    """
+    monotone_rmse: bool = True
+    monotone_uncertainty: bool = True
+    tolerance: float = 0.05
+    max_rel_uncertainty: float | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RequirementReport:
+    satisfied: bool
+    failures: tuple[str, ...]
+    rmse_by_snr: Mapping[float, float]
+    uncertainty_by_snr: Mapping[float, float]
+
+
+def _monotone_decreasing(values: Sequence[float], tol: float) -> bool:
+    return all(b <= a * (1.0 + tol) + 1e-12
+               for a, b in zip(values, values[1:]))
+
+
+def check_requirements(req: UncertaintyRequirements,
+                       rmse_by_snr: Mapping[float, float],
+                       uncertainty_by_snr: Mapping[float, float]
+                       ) -> RequirementReport:
+    """Evaluate Phase-2 results against Phase-1 requirements."""
+    failures: list[str] = []
+    snrs = sorted(rmse_by_snr)
+    rmses = [float(rmse_by_snr[s]) for s in snrs]
+    uncs = [float(uncertainty_by_snr[s]) for s in snrs]
+    if req.monotone_rmse and not _monotone_decreasing(rmses, req.tolerance):
+        failures.append(
+            f"RMSE not decreasing with SNR: {dict(zip(snrs, rmses))}")
+    if req.monotone_uncertainty and not _monotone_decreasing(
+            uncs, req.tolerance):
+        failures.append(
+            f"uncertainty not decreasing with SNR: {dict(zip(snrs, uncs))}")
+    if req.max_rel_uncertainty is not None and uncs and (
+            uncs[-1] > req.max_rel_uncertainty):
+        failures.append(f"uncertainty at SNR={snrs[-1]} is {uncs[-1]:.4f} > "
+                        f"cap {req.max_rel_uncertainty}")
+    return RequirementReport(satisfied=not failures, failures=tuple(failures),
+                             rmse_by_snr=dict(zip(snrs, rmses)),
+                             uncertainty_by_snr=dict(zip(snrs, uncs)))

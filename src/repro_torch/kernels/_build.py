@@ -1,0 +1,119 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Every ``csrc/*.cu`` compiles on its own into ``lib<stem>.so`` with a plain C
+interface (no PyTorch headers, so a build takes seconds, not minutes). The
+libraries land in ``build/kernels-<hash>/`` at the repository root, where
+``<hash>`` covers the sources and the flags, so an edited kernel never loads
+a stale binary. The build runs at first use — all sources at once, one
+``nvcc`` each — and nothing here runs at import: the CPU tests import every
+module of the port on machines without a toolkit.
+
+The helpers at the end are shared by the kernel wrappers: operand checks
+(a wrapper raises on what its kernel does not take) and the launch-error
+check (each C entry returns ``cudaGetLastError()``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+__all__ = ["NVCC_FLAGS", "build", "load", "check_operands", "stream_of",
+           "check_launch"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _build_dir() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_ROOT / f"kernels-{digest.hexdigest()[:16]}"
+
+
+def build() -> dict[str, str]:
+    """Compile every source not yet built, all ``nvcc`` processes started
+    together. Returns ``{stem: compiler output}`` of the ones it built
+    (``-Xptxas -v`` reports registers and shared memory per kernel)."""
+    out = _build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        lib = out / f"lib{src.stem}.so"
+        if lib.exists():
+            continue
+        tmp = out / f"lib{src.stem}.{os.getpid()}.tmp"
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((src.stem, lib, tmp, proc))
+    logs, failed = {}, []
+    for stem, lib, tmp, proc in jobs:
+        logs[stem], _ = proc.communicate()
+        if proc.returncode:
+            failed.append(f"{stem}.cu:\n{logs[stem]}")
+        else:
+            os.replace(tmp, lib)     # atomic: a concurrent loader never
+            #                          sees a half-written library
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded ``lib<name>.so``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build()
+        lib = ctypes.CDLL(str(_build_dir() / f"lib{name}.so"))
+        _LIBS[name] = lib
+    return lib
+
+
+def check_operands(kernel: str, **operands: torch.Tensor) -> torch.device:
+    """Raise unless every operand is a contiguous fp32 tensor on one CUDA
+    device; returns that device."""
+    devices = {t.device for t in operands.values()}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{kernel}: operands must share one CUDA device, "
+                         f"got {sorted(map(str, devices))}")
+    for name, t in operands.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{kernel}: {name} is {t.dtype}, kernel takes "
+                            f"float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} is not contiguous")
+    return devices.pop()
+
+
+def stream_of(device: torch.device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``, as the C entries take it."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check_launch(kernel: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{kernel}: launch failed with CUDA error {err}")

@@ -1,0 +1,16 @@
+"""Plain PyTorch version of the masked_ffn kernel (``csrc/masked_ffn.cu``)."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["masked_ffn_ref"]
+
+
+def masked_ffn_ref(x: torch.Tensor, w1p: torch.Tensor, b1p: torch.Tensor,
+                   w2p: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Packed N-sample FFN: x [B, D], w1p [N, D, K], b1p [N, K],
+    w2p [N, K, D2], b2 [D2] -> ``relu(x @ w1p[n] + b1p[n]) @ w2p[n] + b2``
+    as [N, B, D2]."""
+    h = torch.relu(torch.matmul(x, w1p) + b1p[:, None, :])     # [N, B, K]
+    return torch.matmul(h, w2p) + b2

@@ -1,0 +1,192 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here takes the ``cuda`` fixture, which skips without a card: a
+CUDA kernel has no CPU mode. On a machine with an H100 run them with
+
+    python -m pytest -q tests/test_torch_cuda.py
+
+This file imports no JAX (the card's machine has none); the CPU parity of
+the plain versions against the JAX package is tests/test_torch_kernels.py.
+Tolerances: 1e-4 for a kernel's forward values (fp32 sums in another order
+than cuBLAS), 2e-4 for moments (the reference's fused-vs-per-op bar).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import masks as masks_lib
+from repro_torch.core import plan as plan_lib
+from repro_torch.ivim import model as ivim_model
+from repro_torch.kernels.fused_plan import ops as fops
+from repro_torch.kernels.fused_plan import ref as fref
+from repro_torch.kernels.masked_ffn import ops as mops
+from repro_torch.kernels.masked_ffn import ref as mref
+from repro_torch.serving import engine
+
+TOL_FWD = 1e-4
+TOL_MOMENTS = 2e-4
+
+
+@pytest.fixture
+def cuda():
+    """The card, or a skip."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _rand(gen, *shape, scale=0.5):
+    return torch.randn(*shape, generator=gen) * scale
+
+
+@pytest.mark.parametrize("shape", [
+    (4097, 11, 11, 11, 4),        # ragged batch, clinical width
+    (4096, 104, 52, 52, 32),      # the dense IVIM pair
+    (45, 150, 70, 70, 2),         # D > 128 and K, D2 > 64: the tiled walks
+    (1, 3, 1, 2, 1)])
+def test_masked_ffn_kernel_matches_plain(cuda, shape):
+    b, d, k, d2, n = shape
+    gen = torch.Generator().manual_seed(0)
+    args = [_rand(gen, *s).to(cuda) for s in
+            ((b, d), (n, d, k), (n, k), (n, k, d2), (d2,))]
+    before = mops.masked_ffn.launches
+    got = mops.masked_ffn(*args)
+    assert mops.masked_ffn.launches == before + 1
+    torch.testing.assert_close(got, mref.masked_ffn_ref(*args),
+                               rtol=TOL_FWD, atol=TOL_FWD)
+
+
+S = fref.FusedStep
+
+
+def _ivim(width, n, k):
+    return fref.FusedSpec(
+        (S("dense", "relu", per_sample=True, sample_bias=True, d_in=width,
+           d_out=k),
+         S("dense", "relu", per_sample=True, sample_bias=True, d_in=k,
+           d_out=k),
+         S("dense", "sigmoid", per_sample=True, sample_bias=True, d_in=k,
+           d_out=1)), 4 * n, n, 4, width, 1)
+
+
+SPECS = {
+    "ivim11_n4": _ivim(11, 4, 6),
+    "ivim104_n8": _ivim(104, 8, 52),
+    # shared prefix + bare activations + shared bias + a shared body step
+    "mixed": fref.FusedSpec(
+        (S("dense", "tanh", shared_bias=True, d_in=7, d_out=12),
+         S("act", "gelu"),
+         S("dense", None, per_sample=True, shared_bias=True,
+           sample_bias=True, d_in=12, d_out=9),
+         S("act", "silu"),
+         S("dense", "relu", shared_bias=True, d_in=9, d_out=5),
+         S("dense", "sigmoid", per_sample=True, d_in=5, d_out=3)),
+        6, 3, 2, 7, 3),
+    # nothing per row: every row equal, std 0
+    "all_shared": fref.FusedSpec(
+        (S("dense", "relu", shared_bias=True, d_in=5, d_out=4),), 3, 3, 1,
+        5, 4),
+}
+
+
+def _params(spec, gen, device):
+    out = []
+    for i, slot in fref.param_slots(spec):
+        st = spec.steps[i]
+        shape = {"w": ((spec.n_rows,) if st.per_sample else ())
+                 + (st.d_in, st.d_out),
+                 "b": (st.d_out,), "bp": (spec.n_rows, st.d_out)}[slot]
+        out.append(_rand(gen, *shape).to(device))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("batch", (4097, 1))
+@pytest.mark.parametrize("name", sorted(SPECS))
+def test_fused_kernels_match_plain(cuda, name, batch):
+    spec = SPECS[name]
+    gen = torch.Generator().manual_seed(1)
+    params = _params(spec, gen, cuda)
+    x = torch.rand((batch, spec.d_in), generator=gen).to(cuda)
+    fp = fops.pack(spec, params)
+    before = (fops.fused_samples.launches, fops.fused_moments.launches)
+    torch.testing.assert_close(fops.fused_samples(fp, x),
+                               fref.fused_plan_ref(spec, x, params),
+                               rtol=TOL_FWD, atol=TOL_FWD)
+    for got, want in zip(fops.fused_moments(fp, x),
+                         fref.fused_moments_ref(spec, x, params)):
+        torch.testing.assert_close(got, want, rtol=TOL_MOMENTS,
+                                   atol=TOL_MOMENTS)
+    assert (fops.fused_samples.launches, fops.fused_moments.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+def test_wrappers_refuse_bad_operands(cuda):
+    gen = torch.Generator().manual_seed(2)
+    args = [_rand(gen, *s).to(cuda) for s in
+            ((8, 4), (2, 4, 3), (2, 3), (2, 3, 2), (2,))]
+    with pytest.raises(TypeError, match="float32"):
+        mops.masked_ffn(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        mops.masked_ffn(args[0], args[1].cpu(), *args[2:])
+    with pytest.raises(ValueError, match="not contiguous"):
+        mops.masked_ffn(args[0].t().contiguous().t(), *args[1:])
+    with pytest.raises(ValueError, match="do not chain"):
+        mops.masked_ffn(args[0][:, :3].contiguous(), *args[1:])
+    spec = SPECS["mixed"]
+    fp = fops.pack(spec, _params(spec, gen, cuda))
+    with pytest.raises(ValueError, match="spec wants"):
+        fops.fused_moments(fp, torch.rand(4, 6, device=cuda))
+
+
+def _wide_plan(device):
+    """A masked FFN whose one row of packed weights (921 KB) exceeds a
+    block's shared memory: the fused kernels refuse it, the per-op kernel
+    walks its K and D in chunks."""
+    gen = torch.Generator().manual_seed(3)
+    masks = masks_lib.generate_masks(masks_lib.MaskSpec(480, 2, 1.0))
+    return plan_lib.compile_masked_ffn(
+        _rand(gen, 240, 480, scale=0.1).to(device),
+        _rand(gen, 480).to(device), _rand(gen, 480, 240, scale=0.1).to(device),
+        _rand(gen, 240).to(device), masks)
+
+
+def test_residency_guard_falls_back_per_op(cuda):
+    plan = _wide_plan(cuda)
+    x = torch.rand(300, 240, device=cuda)
+    launches = fops.fused_moments.launches
+    with pytest.raises(fops.FusedPlanUnsupported, match="shared memory"):
+        plan_lib.execute_fused(plan, x, moments=True, device=cuda)
+    assert fops.fused_moments.launches == launches
+    calls = engine.fallback_counts["call"]
+    runner = engine.plan_chunk_runner(plan, device=cuda)
+    got = runner(x)
+    assert engine.fallback_counts["call"] == calls + 1
+    want = engine.plan_chunk_runner(plan, fused=False, device=cuda)(x)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    samples = plan_lib.execute(plan, x.cpu(), device="cpu")
+    torch.testing.assert_close(want[0].cpu(), samples.mean(0),
+                               rtol=TOL_MOMENTS, atol=TOL_MOMENTS)
+
+
+def test_volume_on_card_matches_unpacked(cuda):
+    """The main path at a small size: fused and per-op legs against the
+    unpacked model, one launch per chunk each."""
+    cfg = ivim_model.IvimConfig(n_masks=4)
+    model = ivim_model.init(cfg, torch.Generator().manual_seed(4),
+                            device=cuda)
+    plan = ivim_model.pack_for_serving(model)
+    volume = torch.rand((5, 7, 3, cfg.width), device=cuda) + 0.2
+    want = ivim_model.predict(model, volume.reshape(-1, cfg.width))
+    for fused, counter in ((True, fops.fused_moments),
+                           (False, mops.masked_ffn)):
+        before = counter.launches
+        mean, std = engine.predict_volume(plan, volume, chunk=16,
+                                          fused=fused, device=cuda)
+        assert counter.launches == before + int(np.ceil(105 / 16))
+        for g, w in zip((mean, std), want):
+            torch.testing.assert_close(g.reshape(-1, 4), w,
+                                       rtol=TOL_MOMENTS, atol=TOL_MOMENTS)

@@ -1,0 +1,78 @@
+"""The PyTorch port stands alone: it imports neither ``jax`` nor anything of
+the JAX package, and its entry points run on the card unless told the CPU."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.core import plan as plan_lib
+from repro_torch.ivim import model as ivim_model
+from repro_torch.serving import engine
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def test_port_imports_no_jax_and_no_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = [k for k in sys.modules if k in ('jax', 'repro') or "
+        "k.startswith(('jax.', 'repro.'))]\n"
+        "assert not bad, bad\n"
+        "assert len(names) >= 20, names\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(SRC),
+                         capture_output=True, text=True, timeout=120,
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def _tiny_plan():
+    cfg = ivim_model.IvimConfig(n_masks=2)
+    model = ivim_model.init(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    return ivim_model.pack_for_serving(model), torch.rand(5, cfg.width)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    """device=None means the card: with no card every entry point raises
+    instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    plan, x = _tiny_plan()
+    calls = [
+        lambda: engine.predict_volume(plan, x[None]),
+        lambda: engine.predict_packed(plan, x),
+        lambda: engine.plan_chunk_runner(plan),
+        lambda: plan_lib.execute(plan, x),
+        lambda: plan_lib.execute_fused(plan, x, moments=True),
+        lambda: ivim_model.init(ivim_model.IvimConfig(),
+                                torch.Generator().manual_seed(0)),
+        lambda: device_lib.resolve(None),
+        lambda: device_lib.resolve("cuda"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert device_lib.resolve("cpu") == torch.device("cpu")
+
+
+def test_cpu_only_when_asked():
+    plan, x = _tiny_plan()
+    mean, std = engine.predict_volume(plan, x[None], chunk=2, device="cpu")
+    assert mean.device.type == "cpu" and mean.shape == (1, 5, 4)
+
+
+def test_int8_precision_raises():
+    with pytest.raises(ValueError, match="int8 slice"):
+        plan_lib.Precision("int8")
+    with pytest.raises(ValueError, match="unknown weight precision"):
+        plan_lib.Precision("bf16")
+    assert plan_lib.Precision().weights == "fp32"
