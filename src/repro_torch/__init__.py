@@ -1,10 +1,24 @@
 """PyTorch/CUDA port of the mask-based Bayesian NN serving stack.
 
 A second package beside the JAX/Pallas reference ``repro``: the same module
-layout (``core/``, ``kernels/<name>/{ref,ops}.py``, ``ivim/``, ``serving/``),
-written in PyTorch's idiom, with every Pallas kernel on the ported path
-rewritten as a hand-written CUDA C++ kernel for Hopper (``sm_90a``) under
-``kernels/csrc/``.
+layout (``configs/``, ``core/``, ``models/``, ``kernels/<name>/{ref,ops}.py``,
+``ivim/``, ``serving/``), written in PyTorch's idiom, with every Pallas
+kernel on the ported paths rewritten as a hand-written CUDA C++ kernel for
+Hopper (``sm_90a``) under ``kernels/csrc/``.
+
+Ported so far:
+
+* uIVIM-NET voxel uncertainty: ``ivim.model.pack_for_serving`` ->
+  ``serving.engine.predict_volume``, through the ``fused_plan`` kernel
+  (moments mode; samples mode for ``packed_apply``) with ``masked_ffn`` as
+  the per-op tier.
+* Bayesian LM serving on dense attention stacks: ``configs``, ``models``
+  (layers, transformer, model), ``serving.engine.generate`` and
+  ``serve_uncertain`` over ``serving.server.step_fns``, whose decode step
+  is the ``fused_decode`` kernel (one cooperative launch per step) with
+  the per-op ``models.transformer.decode_step`` as the fallback. MoE,
+  recurrent, xLSTM, M-RoPE and encoder-only models raise
+  ``NotImplementedError``.
 
 Dispatch is by tensor device: a kernel wrapper given a CPU tensor runs the
 plain PyTorch version beside it (``ref.py``); given a CUDA tensor it launches

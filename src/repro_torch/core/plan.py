@@ -39,8 +39,12 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.core import masks as masks_lib
+from repro_torch.core import masksembles
 from repro_torch.core import packing
 from repro_torch.core import scheduler as sched_lib
+from repro_torch.core import uncertainty as unc_lib
+from repro_torch.kernels.fused_decode import ops as fd_ops
 from repro_torch.kernels.fused_plan import ops as fp_ops
 from repro_torch.kernels.fused_plan import ref as fused_ref
 from repro_torch.kernels.fused_plan.ref import FusedPlanUnsupported
@@ -52,7 +56,11 @@ __all__ = ["SharedDense", "PackedPair", "Activation", "OutputHead",
            "PackedPlan", "Precision", "activation_fn", "tree_map",
            "fold_bn_dense", "fold_bn_ivim", "compile_ivim",
            "compile_masked_ffn", "execute", "lower_fused", "execute_fused",
-           "fused_executor", "FusedPlanUnsupported", "fused_lowering_counts"]
+           "fused_executor", "FusedPlanUnsupported", "fused_lowering_counts",
+           "pack_ffn_leaves", "ffn_leaves_apply", "lower_fused_decode",
+           "compile_decode_step", "decode_fused_spec", "prefill_buckets",
+           "prefill_bucket", "prefill_fused_spec", "compile_prefill_step",
+           "decode_stage_traffic", "decode_traffic"]
 
 activation_fn = fused_ref.act_fn
 
@@ -554,3 +562,464 @@ def execute_fused(plan: PackedPlan, x: torch.Tensor, *, moments: bool = False,
     shared-memory guard (callers fall back to :func:`execute`).
     """
     return fused_executor(plan, moments=moments, device=device)(x)
+
+
+# ---------------------------------------------------------------------------
+# transformer FFN serving leaves (mask-zero skipping)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def pack_ffn_leaves(ffn: Params, masks) -> Params:
+    """Transformer FFN block params {wg?, wu, wd} (leaves optionally stacked
+    [R, ...] over repeats) + masks [N, F] -> packed serving leaves
+    {wgp?, wup [.., N, D, K], wdp [.., N, K, D]} — the form
+    ``models.layers.ffn_apply`` runs through :func:`ffn_leaves_apply`."""
+    idx = packing.kept_indices(torch.as_tensor(masks).float())
+
+    def out_g(w: torch.Tensor) -> torch.Tensor:    # [.., D, F] -> [.., N, D, K]
+        return packing.gather_units(w, idx, axis=-1).movedim(0, -3) \
+            .contiguous()
+
+    def in_g(w: torch.Tensor) -> torch.Tensor:     # [.., F, D] -> [.., N, K, D]
+        return packing.gather_units(w, idx, axis=-2).movedim(0, -3) \
+            .contiguous()
+
+    out = {"wup": out_g(ffn["wu"]["w"]), "wdp": in_g(ffn["wd"]["w"])}
+    if "wg" in ffn:
+        out["wgp"] = out_g(ffn["wg"]["w"])
+    return out
+
+
+def ffn_leaves_apply(p: Params, x: torch.Tensor, activation: str
+                     ) -> torch.Tensor:
+    """Packed transformer-FFN leaves on x [B, S, D] with rows grouped
+    mask-major (row j uses mask j // (B/N)) -> same shape. The gated form
+    (wgp present) is silu/gelu-gated; the hidden width is the kept K."""
+    act = activation_fn(activation)
+    n = p["wdp"].shape[0]
+    b = x.shape[0]
+    if b % n != 0:
+        raise ValueError(
+            f"ffn_leaves_apply: batch rows {b} not divisible by the "
+            f"packed mask count {n} — rows must be grouped mask-major")
+    xg = x.reshape(n, b // n, *x.shape[1:])        # [N, B/N, S, D]
+    if "wgp" in p:
+        h = act(torch.einsum("nbsd,ndk->nbsk", xg, p["wgp"])) * \
+            torch.einsum("nbsd,ndk->nbsk", xg, p["wup"])
+    else:
+        h = act(torch.einsum("nbsd,ndk->nbsk", xg, p["wup"]))
+    y = torch.einsum("nbsk,nkd->nbsd", h, p["wdp"])
+    return y.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# fused serving-decode step (kernels/fused_decode)
+# ---------------------------------------------------------------------------
+#
+# One serving decode step of the whole mask-expanded slot pool — KV gather,
+# attention over the slot-pool cache, the (packed) Bayesian FFN and the
+# Welford posterior — lowered onto the FusedStep vocabulary and run as ONE
+# kernel launch. serving/server.step_fns routes its decode hot loop through
+# compile_decode_step, with the per-op transformer.decode_step path as the
+# FusedPlanUnsupported fallback.
+
+
+def lower_fused_decode(cfg, *, expand_masks: bool = True
+                       ) -> fused_ref.FusedDecodeSpec:
+    """Lower a ModelConfig's serving decode step to the fused decode IR:
+    ``(norm, attn, norm, ffn) × L + (final norm, lm-head dense)``, segments
+    flattened rep-major. Raises :class:`FusedPlanUnsupported` for configs
+    with no fused decode form (non-causal, M-RoPE, int8 KV, or any block
+    kind other than attn/local_attn)."""
+    if not cfg.causal:
+        raise FusedPlanUnsupported("encoder-only config has no decode step")
+    if cfg.m_rope_sections:
+        raise FusedPlanUnsupported("M-RoPE decode has no fused lowering")
+    if cfg.kv_dtype == "int8":
+        raise FusedPlanUnsupported(
+            "int8 KV cache has no fused decode lowering")
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    rot = int(dh * cfg.rope_pct)
+    rot -= rot % 2
+    bayes = cfg.bayesian and expand_masks
+    n = cfg.mask_samples if bayes else 1
+    packed = cfg.bayesian and cfg.packed_ffn_serving
+    gated = cfg.activation in ("silu", "gelu")
+    ln_bias = cfg.norm == "layernorm"
+    d_hidden = (masks_lib.keep_count(cfg.d_ff, cfg.mask_samples,
+                                     cfg.mask_scale) if packed else cfg.d_ff)
+    norm = fused_ref.FusedStep("norm", norm=cfg.norm, shared_bias=ln_bias,
+                               d_in=d, d_out=d)
+    steps: list[fused_ref.FusedStep] = []
+    for seg in cfg.segments():
+        for kind in seg.pattern:
+            if kind not in ("attn", "local_attn"):
+                raise FusedPlanUnsupported(
+                    f"block kind {kind!r} has no fused decode lowering")
+        for _ in range(seg.reps):
+            for kind in seg.pattern:
+                steps.append(norm)
+                steps.append(fused_ref.FusedStep(
+                    "attn", d_in=d, d_out=d, n_heads=cfg.n_heads,
+                    n_kv_heads=cfg.n_kv_heads, head_dim=dh, rot_dim=rot,
+                    qkv_bias=cfg.qkv_bias,
+                    window=cfg.local_window if kind == "local_attn" else 0))
+                steps.append(norm)
+                steps.append(fused_ref.FusedStep(
+                    "ffn", activation=cfg.activation, gated=gated,
+                    per_sample=packed, masked=cfg.bayesian and not packed,
+                    ffn_bias=not gated and not packed, d_hidden=d_hidden,
+                    d_in=d, d_out=d))
+    steps.append(norm)
+    steps.append(fused_ref.FusedStep("dense", d_in=d, d_out=cfg.vocab_size))
+    return fused_ref.FusedDecodeSpec(steps=tuple(steps), n_samples=n,
+                                     d_model=d, vocab=cfg.vocab_size,
+                                     kv_dtype=cfg.kv_dtype)
+
+
+def _decode_mask_ids(cfg, rows: int, expand_masks: bool,
+                     device) -> torch.Tensor:
+    """Per-row mask assignment of the decode pool — the ids the per-op path
+    uses (mask-major groups when expanded, the Masksembles batch-group
+    default otherwise)."""
+    n = cfg.mask_samples
+    if expand_masks:
+        return torch.arange(n, device=device).repeat_interleave(rows // n)
+    return masksembles.mask_ids_for_batch(rows, n, device=device)
+
+
+def _decode_flat_params(spec: fused_ref.FusedDecodeSpec, cfg, params: Params,
+                        rows: int, expand_masks: bool
+                        ) -> tuple[torch.Tensor, ...]:
+    """Flatten the transformer param tree into ``decode_param_slots`` order
+    (stacked leaves sliced per repeat; the Bayesian mask matrix gathered
+    per row). Every tensor is contiguous: the kernel reads them in place,
+    so a tied LM head is handed over as a contiguous copy of ``embed.T``
+    ([d, V]; the runner keeps it with the rest of the flattened tuple)."""
+    flat: list[torch.Tensor] = []
+
+    def push_norm(p):
+        flat.append(p["scale"])
+        if "bias" in p:
+            flat.append(p["bias"])
+
+    for si, seg in enumerate(cfg.segments()):
+        seg_params = params["segments"][si]
+        for r in range(seg.reps):
+            for bi in range(len(seg.pattern)):
+                block = tree_map(lambda a, r=r: a[r], seg_params[f"b{bi}"])
+                push_norm(block["norm1"])
+                at = block["attn"]
+                for w in ("wq", "wk", "wv"):
+                    flat.append(at[w]["w"])
+                    if "b" in at[w]:
+                        flat.append(at[w]["b"])
+                flat.append(at["wo"]["w"])
+                push_norm(block["norm2"])
+                ffn = block["ffn"]
+                if "wdp" in ffn:                    # packed serving leaves
+                    if "wgp" in ffn:
+                        flat.append(ffn["wgp"])
+                    flat += [ffn["wup"], ffn["wdp"]]
+                else:
+                    if "wg" in ffn:
+                        flat.append(ffn["wg"]["w"])
+                    flat.append(ffn["wu"]["w"])
+                    if "b" in ffn["wu"]:
+                        flat.append(ffn["wu"]["b"])
+                    flat.append(ffn["wd"]["w"])
+                    if "b" in ffn["wd"]:
+                        flat.append(ffn["wd"]["b"])
+                    if "masks" in ffn:
+                        ids = _decode_mask_ids(cfg, rows, expand_masks,
+                                               ffn["masks"].device)
+                        flat.append(ffn["masks"][ids])
+    push_norm(params["final_norm"])
+    emb = params["embed"]
+    flat.append(emb["unembed"]["w"] if "unembed" in emb
+                else emb["embed"].T.contiguous())
+    want = len(fused_ref.decode_param_slots(spec))
+    if len(flat) != want:
+        raise FusedPlanUnsupported(
+            f"param tree does not match the lowered decode spec "
+            f"({len(flat)} arrays vs {want} slots)")
+    return tuple(flat)
+
+
+def _decode_flat_caches(cfg, caches) -> tuple[torch.Tensor, ...]:
+    """Flatten pooled KV caches to ``(k, v, kpos)`` per 'attn' step, in the
+    lowering's rep-major step order (views, no copies)."""
+    flat: list[torch.Tensor] = []
+    for si, seg in enumerate(cfg.segments()):
+        for r in range(seg.reps):
+            for bi in range(len(seg.pattern)):
+                c = caches[si][f"b{bi}"]
+                flat += [c["k"][r], c["v"][r], c["kpos"][r]]
+    return tuple(flat)
+
+
+def _decode_commit_caches(cfg, caches, knew: torch.Tensor,
+                          vnew: torch.Tensor, pos: torch.Tensor):
+    """Commit the kernel's fresh per-layer k/v [L, R, hkv, dh] into the
+    pooled caches with ``layers.kv_cache_update``'s slot formula and cast,
+    one indexed write per segment block over all its repeats. Functional,
+    like the per-op path: the caches passed in are left as they were."""
+    out = []
+    ai = 0
+    rows = knew.shape[1]
+    for si, seg in enumerate(cfg.segments()):
+        new_seg = {}
+        width = len(seg.pattern)
+        for bi, kind in enumerate(seg.pattern):
+            c = caches[si][f"b{bi}"]
+            smax = c["k"].shape[3]
+            window = cfg.local_window if kind == "local_attn" else 0
+            p64 = pos.to(torch.int64)
+            slot = ((p64 % window) if window else p64) % smax       # [R]
+            layer = ai + bi + width * torch.arange(seg.reps,
+                                                   device=knew.device)
+            reps = torch.arange(seg.reps, device=knew.device)[:, None]
+            bidx = torch.arange(rows, device=knew.device)[None, :]
+            k, v, kpos = c["k"].clone(), c["v"].clone(), c["kpos"].clone()
+            k[reps, bidx, :, slot[None, :]] = knew[layer].to(k.dtype)
+            v[reps, bidx, :, slot[None, :]] = vnew[layer].to(v.dtype)
+            kpos[reps, bidx, slot[None, :]] = pos.to(torch.int32)[None, :]
+            new_seg[f"b{bi}"] = {"k": k, "v": v, "kpos": kpos}
+        ai += width * seg.reps
+        out.append(new_seg)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _decode_runner(cfg, expand_masks: bool, device: torch.device):
+    """One decode-step executor per (config, expansion, device). The
+    flattened parameter tuple is kept for the last ``params`` tree seen
+    (an identity check), so a serving loop flattens once, not per step."""
+    spec = lower_fused_decode(cfg, expand_masks=expand_masks)
+    rot = next(s.rot_dim for s in spec.steps if s.kind == "attn")
+    last: dict[str, Any] = {}
+
+    @torch.no_grad()
+    def run(params, caches, tokens, pos):
+        from repro_torch.models import layers
+        tokens = tokens.to(device)
+        rows = tokens.shape[0]
+        pos_r = torch.as_tensor(pos, dtype=torch.int32, device=device)
+        if pos_r.ndim == 0:
+            pos_r = pos_r.expand(rows).contiguous()
+        if last.get("params") is not params or last.get("rows") != rows:
+            last.update(params=params, rows=rows, flat=_decode_flat_params(
+                spec, cfg, params, rows, expand_masks))
+        x = layers.embed_tokens(params["embed"], tokens[:, 0])
+        cos, sin = layers.rope_cos_sin(pos_r, rot, cfg.rope_theta)
+        fc = _decode_flat_caches(cfg, caches)
+        mean, rel, knew, vnew = fd_ops.fused_decode(
+            spec, x, last["flat"], fc, pos_r, cos, sin)
+        return mean, rel, _decode_commit_caches(cfg, caches, knew, vnew,
+                                                pos_r)
+
+    return run
+
+
+def compile_decode_step(cfg, *, expand_masks: bool = True,
+                        device: torch.device | str | None = None
+                        ) -> Callable:
+    """Lower once, decode many: the fused serving decode step of ``cfg`` as
+    a cached executor ``(params, caches, tokens [R,1], pos) ->
+    (mean_logp [b, V], rel_unc [b], new_caches)`` on ``device`` (None ->
+    the card).
+
+    ``pos`` is a scalar or per-row ``[R]`` vector; rows are mask-major
+    (``expand_masks=True``: row ``r`` is mask ``r // b``). Raises
+    :class:`FusedPlanUnsupported` immediately when the config has no fused
+    decode lowering; the kernel wrapper's own limits fire from the first
+    call (``serving.server.step_fns`` catches around it)."""
+    dev = device_lib.resolve(device)
+    return _decode_runner(cfg, bool(expand_masks), dev)
+
+
+def decode_fused_spec(cfg, *, expand_masks: bool = True
+                      ) -> fused_ref.FusedDecodeSpec:
+    """Static shape-key of the fused decode executor."""
+    return lower_fused_decode(cfg, expand_masks=expand_masks)
+
+
+# ---------------------------------------------------------------------------
+# bucketed prefill
+# ---------------------------------------------------------------------------
+#
+# The bucketed form zero-pads the prompt to one of a small set of length
+# buckets (powers of two up to max_seq, plus max_seq) and runs the prefill at
+# the bucket length: the last-token logits are gathered at length-1 (causal
+# attention makes that position blind to the pad tail) and the pad tail's
+# cache entries are trimmed back to the init state — equal to an
+# exact-length prefill. Support is gated through the fused decode lowering
+# (lower_fused_decode + check_prefill_paddable).
+
+
+@functools.lru_cache(maxsize=None)
+def prefill_buckets(max_seq: int,
+                    buckets: tuple[int, ...] | None = None
+                    ) -> tuple[int, ...]:
+    """Resolve the prefill length-bucket set against a cache capacity:
+    ``None`` -> powers of two below ``max_seq`` plus ``max_seq``; an
+    explicit set is validated, sorted, deduplicated and capped."""
+    if max_seq < 1:
+        raise ValueError(f"max_seq {max_seq} < 1")
+    if buckets is None:
+        out, b = [], 1
+        while b < max_seq:
+            out.append(b)
+            b <<= 1
+        out.append(max_seq)
+        return tuple(sorted(set(out)))
+    vals = tuple(int(b) for b in buckets)
+    if not vals:
+        raise ValueError("empty prefill bucket set (use None for the "
+                         "power-of-two default, or () upstream to disable "
+                         "bucketing)")
+    if any(b < 1 for b in vals):
+        raise ValueError(f"non-positive prefill bucket in {vals}")
+    return tuple(sorted({b for b in vals if b <= max_seq}))
+
+
+def prefill_bucket(length: int, max_seq: int,
+                   buckets: tuple[int, ...] | None = None) -> int | None:
+    """Smallest bucket >= ``length`` (None when no bucket covers it)."""
+    for b in prefill_buckets(max_seq, buckets):
+        if b >= length:
+            return b
+    return None
+
+
+def prefill_fused_spec(cfg, *, expand_masks: bool = True
+                       ) -> fused_ref.FusedDecodeSpec:
+    """Static shape-key of the bucketed prefill, and its support gate:
+    raises :class:`FusedPlanUnsupported` when padded-bucket prefill would
+    not be exact for ``cfg``."""
+    return fused_ref.check_prefill_paddable(
+        lower_fused_decode(cfg, expand_masks=expand_masks))
+
+
+@functools.lru_cache(maxsize=256)
+def _prefill_runner(cfg, expand_masks: bool, bucket: int, max_seq: int):
+    prefill_fused_spec(cfg, expand_masks=expand_masks)
+    bayes = cfg.bayesian and expand_masks
+    n = cfg.mask_samples if bayes else 1
+
+    @torch.no_grad()
+    def run(params, tokens, length: int):
+        from repro_torch.models import transformer
+        rows = tokens.shape[0]
+        ids = (torch.arange(n, device=tokens.device)
+               .repeat_interleave(rows // n) if bayes else None)
+        logits, caches = transformer.prefill(
+            cfg, params, {"tokens": tokens}, max_seq=max_seq,
+            mask_ids=ids, last_index=length - 1)
+        caches = transformer.cache_trim_positions(caches, length)
+        mean, rel = unc_lib.token_posterior(logits, n)
+        return mean, rel, caches
+
+    return run
+
+
+def compile_prefill_step(cfg, bucket: int, max_seq: int, *,
+                         expand_masks: bool = True) -> Callable:
+    """The bucketed prefill of ``cfg`` at one length bucket:
+    ``(params, tokens [R, bucket], length) -> (mean_logp [b, V],
+    rel_unc [b], caches)``, with ``tokens`` the prompt zero-padded to
+    ``bucket`` columns and ``length`` its true length."""
+    if not 1 <= bucket <= max_seq:
+        raise ValueError(f"bucket {bucket} outside [1, max_seq={max_seq}]")
+    return _prefill_runner(cfg, bool(expand_masks), int(bucket),
+                           int(max_seq))
+
+
+# ---------------------------------------------------------------------------
+# decode-step pricing
+# ---------------------------------------------------------------------------
+
+
+def decode_stage_traffic(spec: fused_ref.FusedDecodeSpec, rows: int,
+                         max_seq: int, bytes_per_el: int = 2, *,
+                         fused: bool = True
+                         ) -> dict[str, sched_lib.TrafficModel]:
+    """Per-stage split of :func:`decode_traffic`: one TrafficModel per step
+    kind (``norm``/``attn``/``ffn``/``dense`` — attn includes its KV-cache
+    bytes) plus ``interstage`` (activations between launches, and the launch
+    count). Weights priced at ``bytes_per_el``, KV rows at the spec's
+    ``kv_dtype`` width, ``kpos`` at 4 bytes."""
+    d, v, n = spec.d_model, spec.vocab, spec.n_samples
+    b = rows // n
+    kv_b = {"bfloat16": 2}.get(spec.kv_dtype, bytes_per_el)
+    acc: dict[str, list[int]] = {}
+
+    def add(kind: str, w: int = 0, kv: int = 0, pos: int = 0,
+            fl: int = 0) -> None:
+        cur = acc.setdefault(kind, [0, 0, 0, 0])
+        for j, inc in enumerate((w, kv, pos, fl)):
+            cur[j] += inc
+
+    layers_l = 0
+    for st in spec.steps:
+        if st.kind == "norm":
+            add("norm", w=d * (2 if st.shared_bias else 1))
+        elif st.kind == "attn":
+            hh, hkv, dh = st.n_heads, st.n_kv_heads, st.head_dim
+            smax = min(st.window, max_seq) if st.window else max_seq
+            proj = d * hh * dh + 2 * d * hkv * dh + hh * dh * d
+            if st.qkv_bias:
+                proj += hh * dh + 2 * hkv * dh
+            add("attn", w=proj,
+                kv=rows * hkv * smax * dh * 2 + rows * hkv * dh * 2,
+                pos=rows * smax + rows,
+                fl=2 * rows * proj + 4 * rows * hh * dh * (smax + 1))
+            layers_l += 1
+        elif st.kind == "ffn":
+            mats = 3 if st.gated else 2
+            if st.per_sample:
+                add("ffn", w=n * mats * d * st.d_hidden,
+                    fl=2 * rows * mats * d * st.d_hidden)
+            else:
+                w = mats * d * st.d_hidden \
+                    + (st.d_hidden + d if st.ffn_bias else 0)
+                if st.masked:
+                    w += n * st.d_hidden
+                add("ffn", w=w, fl=2 * rows * mats * d * st.d_hidden)
+        elif st.kind == "dense":
+            add("dense",
+                w=st.d_in * st.d_out + (st.d_out if st.shared_bias else 0),
+                fl=2 * rows * st.d_in * st.d_out)
+        elif st.kind != "act":
+            raise ValueError(f"decode_stage_traffic: unpriced step kind "
+                             f"{st.kind!r}")
+    if fused:
+        act_el = rows * d + b * v + b
+        launches = 1
+    else:
+        act_el = layers_l * 4 * rows * d + rows * d + 2 * rows * v \
+            + b * v + b
+        launches = 2 * layers_l + 2
+    out = {kind: sched_lib.TrafficModel(
+        weight_bytes=w * bytes_per_el + kv * kv_b + pos * 4,
+        act_bytes=0, flops=fl, weight_loads=0)
+        for kind, (w, kv, pos, fl) in acc.items()}
+    out["interstage"] = sched_lib.TrafficModel(
+        weight_bytes=0, act_bytes=act_el * bytes_per_el, flops=0,
+        weight_loads=launches)
+    return out
+
+
+def decode_traffic(spec: fused_ref.FusedDecodeSpec, rows: int, max_seq: int,
+                   bytes_per_el: int = 2, *, fused: bool = True
+                   ) -> sched_lib.TrafficModel:
+    """Modeled device-memory traffic and FLOPs of ONE pool decode step,
+    priced from the spec (the sum of :func:`decode_stage_traffic`)."""
+    stages = decode_stage_traffic(spec, rows, max_seq, bytes_per_el,
+                                  fused=fused)
+    return sched_lib.TrafficModel(
+        weight_bytes=sum(t.weight_bytes for t in stages.values()),
+        act_bytes=sum(t.act_bytes for t in stages.values()),
+        flops=sum(t.flops for t in stages.values()),
+        weight_loads=sum(t.weight_loads for t in stages.values()))

@@ -15,7 +15,7 @@ from typing import Mapping, Sequence
 import torch
 
 __all__ = ["REL_UNC_EPS", "predictive_moments", "relative_uncertainty",
-           "rmse", "UncertaintyRequirements", "RequirementReport",
+           "token_posterior", "rmse", "UncertaintyRequirements", "RequirementReport",
            "check_requirements"]
 
 #: Floor on |mean| in the relative-uncertainty ratio std/|mean| — a pure
@@ -37,6 +37,23 @@ def relative_uncertainty(samples: torch.Tensor, axis: int = 0,
     """Paper's metric: std / |mean| per prediction (relative variance)."""
     mean, std = predictive_moments(samples, axis=axis)
     return std / mean.abs().clamp_min(eps)
+
+
+def token_posterior(logits: torch.Tensor, n: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mask-sample posterior of one LM serving step: logits [n*b, V]
+    (mask-major rows) -> (mean log-probs [b, V], relative uncertainty of
+    the argmax token [b]), in fp32.
+
+    Shared by the per-op decode step and both prefill forms; the fused
+    decode kernel's Welford epilogue matches it to fp tolerance. n=1
+    degenerates to plain log-probs with zero uncertainty."""
+    logp = torch.log_softmax(logits.float(), -1)
+    mean, std = predictive_moments(logp.reshape(n, -1, logp.shape[-1]))
+    tok = mean.argmax(-1, keepdim=True)
+    std_t = std.gather(-1, tok)[:, 0]
+    mean_t = mean.gather(-1, tok)[:, 0]
+    return mean, std_t / mean_t.abs().clamp_min(REL_UNC_EPS)
 
 
 def rmse(pred: torch.Tensor, target: torch.Tensor, axis=None) -> torch.Tensor:

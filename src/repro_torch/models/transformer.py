@@ -1,0 +1,328 @@
+"""The dense transformer stack of the serving path (the port's twin of
+``repro.models.transformer``, attention blocks only).
+
+Parameters keep the reference's layout: ``params["segments"][si]["b{bi}"]``
+with every leaf stacked ``[reps, ...]`` over the segment's repeats, plus
+``embed`` and ``final_norm``; caches are ``[reps, batch, ...]`` per block.
+The stack runs as a Python loop over layers (serving needs no scan and no
+rematerialisation). Block kinds other than attn/local_attn (MoE, RG-LRU,
+xLSTM), M-RoPE and encoder-only models arrive with slice 4 of the port and
+raise ``NotImplementedError`` at init.
+
+Entry points:
+  prefill(params, {tokens})               — prompt -> last logits + caches
+  decode_step(params, caches, tokens, pos) — one-token serving step
+
+Masksembles rides through every FFN via ``mask_ids``: fixed masks over the
+hidden units, assigned per batch row.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import masksembles
+from repro_torch.core import plan as plan_lib
+from repro_torch.models import layers
+
+Params = dict[str, Any]
+
+__all__ = ["check_supported", "init", "params_from_jax", "init_cache",
+           "cache_specs", "cache_trim_positions", "pack_ffn_params",
+           "prefill", "decode_step"]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not build yet."""
+    kinds = {k for seg in cfg.segments() for k in seg.pattern}
+    if not kinds <= {"attn", "local_attn"} or cfg.m_rope_sections \
+            or not cfg.causal:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: block kinds {sorted(kinds)}, M-RoPE and "
+            f"encoder-only models arrive with slice 4 of the port; this "
+            f"slice builds causal attention stacks")
+
+
+def _stack(trees: list) -> Any:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _block_init(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
+    d = cfg.d_model
+    return {"norm1": layers.norm_init(d, cfg.norm, dtype, gen.device),
+            "attn": layers.attn_init(gen, cfg, dtype),
+            "norm2": layers.norm_init(d, cfg.norm, dtype, gen.device),
+            "ffn": layers.ffn_init(gen, cfg, dtype=dtype)}
+
+
+@torch.no_grad()
+def init(cfg: ModelConfig, generator: torch.Generator,
+         device: torch.device | str | None = None) -> Params:
+    """Random parameters drawn from ``generator`` (on its device), moved to
+    ``device`` (None -> the card). Segment leaves are stacked over repeats."""
+    check_supported(cfg)
+    dev = device_lib.resolve(device)
+    dtype = cfg.dtype
+    params: Params = {"segments": []}
+    for seg in cfg.segments():
+        reps = [{f"b{i}": _block_init(cfg, generator, dtype)
+                 for i in range(len(seg.pattern))} for _ in range(seg.reps)]
+        params["segments"].append(_stack(reps))
+    params["embed"] = layers.embed_init(generator, cfg, dtype)
+    params["final_norm"] = layers.norm_init(cfg.d_model, cfg.norm, dtype,
+                                            generator.device)
+    return _tree(lambda t: t.to(dev), params)
+
+
+def _tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def params_from_jax(cfg: ModelConfig, params,
+                    device: torch.device | str | None = None) -> Params:
+    """The port's parameter tree holding the reference's LM parameters
+    (numpy arrays or anything ``np.asarray`` takes — masked or packed FFN
+    leaves alike), in ``cfg.dtype`` on ``device`` (None -> the card)."""
+    dev = device_lib.resolve(device)
+
+    def conv(a) -> torch.Tensor:
+        return torch.tensor(np.asarray(a, np.float32), device=dev).to(
+            cfg.dtype)
+
+    return _tree(conv, params)
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def _cache_shapes(cfg: ModelConfig, batch: int, max_seq: int):
+    dh = cfg.resolved_head_dim
+    store = layers.kv_store_dtype(cfg.dtype, cfg.kv_dtype)
+    out = []
+    for seg in cfg.segments():
+        one = {}
+        for i, kind in enumerate(seg.pattern):
+            s = (min(cfg.local_window or max_seq, max_seq)
+                 if kind == "local_attn" else max_seq)
+            one[f"b{i}"] = {
+                "k": ((seg.reps, batch, cfg.n_kv_heads, s, dh), store),
+                "v": ((seg.reps, batch, cfg.n_kv_heads, s, dh), store),
+                "kpos": ((seg.reps, batch, s), torch.int32)}
+        out.append(one)
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device: torch.device | str | None = None):
+    """Empty KV caches (k/v zero, kpos -1) on ``device`` (None -> card)."""
+    dev = device_lib.resolve(device)
+    return [{b: {name: torch.full(shape, -1 if name == "kpos" else 0,
+                                  dtype=dt, device=dev)
+                 for name, (shape, dt) in leaves.items()}
+             for b, leaves in seg.items()}
+            for seg in _cache_shapes(cfg, batch, max_seq)]
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int):
+    """``(shape, dtype)`` of every cache leaf, without allocating."""
+    return _cache_shapes(cfg, batch, max_seq)
+
+
+def cache_trim_positions(caches, length: int):
+    """Invalidate every cache entry at position >= ``length``: kpos to -1,
+    K/V to zero — the init state of those slots (the bucketed-prefill
+    epilogue; slot == position in every global-attention cache)."""
+    out = []
+    for seg in caches:
+        new = {}
+        for b, c in seg.items():
+            smax = c["kpos"].shape[-1]
+            keep = torch.arange(smax, device=c["kpos"].device) < length
+            new[b] = {
+                "k": torch.where(keep[:, None], c["k"], 0).to(c["k"].dtype),
+                "v": torch.where(keep[:, None], c["v"], 0).to(c["v"].dtype),
+                "kpos": torch.where(keep, c["kpos"], -1).to(torch.int32)}
+        out.append(new)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# block application
+# ---------------------------------------------------------------------------
+
+
+def _rope(cfg: ModelConfig, positions: torch.Tensor):
+    """positions [S] or [B,S] -> cos/sin broadcastable against [B,H,S,dh]."""
+    dh = cfg.resolved_head_dim
+    rot = int(dh * cfg.rope_pct)
+    rot -= rot % 2
+    cos, sin = layers.rope_cos_sin(positions, rot, cfg.rope_theta)
+    if cos.ndim == 2:          # [S, half] -> [1, 1, S, half]
+        return cos[None, None], sin[None, None]
+    return cos[:, None], sin[:, None]     # [B, S, half] -> [B, 1, S, half]
+
+
+def _attention_sublayer(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
+                        mode: str, kind: str, cache, pos):
+    h, hkv = cfg.n_heads, cfg.n_kv_heads
+    xn = layers.norm_apply(p["norm1"], x, cfg.norm)
+    q = layers.split_heads(layers.dense(p["attn"]["wq"], xn), h)
+    k = layers.split_heads(layers.dense(p["attn"]["wk"], xn), hkv)
+    v = layers.split_heads(layers.dense(p["attn"]["wv"], xn), hkv)
+    cos, sin = rope
+    q = layers.apply_rope(q, cos, sin, cfg.rope_pct)
+    k = layers.apply_rope(k, cos, sin, cfg.rope_pct)
+    window = cfg.local_window if kind == "local_attn" else 0
+    if mode == "decode":
+        new_cache = layers.kv_cache_update(cache, k, v, pos, window)
+        attn = layers.attention_decode(q, new_cache["k"], new_cache["v"],
+                                       new_cache["kpos"], pos)
+    else:
+        s = x.shape[1]
+        if window and s > window:
+            attn = layers.attention_banded(q, k, v, window=window)
+        elif s > cfg.attn_chunk and cfg.causal:
+            attn = layers.attention_chunked(q, k, v, causal=True,
+                                            chunk=cfg.attn_chunk,
+                                            scores_f32=cfg.attn_scores_f32)
+        else:
+            attn = layers.attention_full(q, k, v, causal=cfg.causal,
+                                         window=window,
+                                         scores_f32=cfg.attn_scores_f32)
+        # the last min(s, smax) positions land at slot = pos % smax — the
+        # decode step's slot formula (smax == window for local attention)
+        smax = cache["k"].shape[2]
+        if s > smax and (not window or smax < window):
+            raise ValueError(f"prompt length {s} exceeds cache capacity "
+                             f"{smax}; raise max_seq")
+        keep = min(s, smax)
+        kept_pos = torch.arange(s - keep, s, dtype=torch.int64,
+                                device=x.device)
+        slots = kept_pos % smax
+        store = layers.kv_store_dtype(k.dtype, cfg.kv_dtype)
+        ks = torch.zeros_like(cache["k"], dtype=store)
+        vs = torch.zeros_like(cache["v"], dtype=store)
+        ks[:, :, slots] = k[:, :, -keep:].to(store)
+        vs[:, :, slots] = v[:, :, -keep:].to(store)
+        kpos = torch.full((smax,), -1, dtype=torch.int32, device=x.device)
+        kpos[slots] = kept_pos.to(torch.int32)
+        new_cache = {"k": ks, "v": vs,
+                     "kpos": kpos[None].expand(x.shape[0], smax).clone()}
+    out = layers.dense(p["attn"]["wo"], layers.merge_heads(attn))
+    return x + out, new_cache
+
+
+def _block_apply(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+                 mode: str, rope, mask_ids, cache, pos):
+    """x [B,S,D] (prefill) or [B,1,D] (decode) -> (x, new cache)."""
+    if kind not in ("attn", "local_attn"):
+        raise NotImplementedError(f"block kind {kind!r} arrives with slice 4")
+    x, new_cache = _attention_sublayer(cfg, p, x, rope, mode, kind, cache,
+                                       pos)
+    xn = layers.norm_apply(p["norm2"], x, cfg.norm)
+    return x + layers.ffn_apply(p["ffn"], xn, cfg, mask_ids=mask_ids), \
+        new_cache
+
+
+def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
+               mode: str, rope, mask_ids, caches, pos=None):
+    """Every layer in order; returns (x, caches stacked [reps, ...])."""
+    new_caches = []
+    for si, seg in enumerate(cfg.segments()):
+        sp, sc = params["segments"][si], caches[si]
+        outs = []
+        for r in range(seg.reps):
+            rc = {}
+            for i, kind in enumerate(seg.pattern):
+                bp = plan_lib.tree_map(lambda a, r=r: a[r], sp[f"b{i}"])
+                bc = {k: t[r] for k, t in sc[f"b{i}"].items()}
+                x, rc[f"b{i}"] = _block_apply(kind, cfg, bp, x, mode=mode,
+                                              rope=rope, mask_ids=mask_ids,
+                                              cache=bc, pos=pos)
+            outs.append(rc)
+        new_caches.append(_stack(outs))
+    return x, new_caches
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def pack_ffn_params(cfg: ModelConfig, params: Params) -> Params:
+    """Checkpoint conversion: masked-FFN weights -> per-sample packed
+    serving weights (mask-zero skipping, paper §V-C), through
+    ``core.plan.pack_ffn_leaves``. Use with ``dataclasses.replace(cfg,
+    packed_ffn_serving=True)``; exact vs the masked form."""
+    new = dict(params)
+    new["segments"] = []
+    for seg in params["segments"]:
+        out = {}
+        for name, block in seg.items():
+            block = dict(block)
+            if "masks" in block["ffn"]:
+                # masks are identical across repeats (one seed per config)
+                block["ffn"] = plan_lib.pack_ffn_leaves(
+                    block["ffn"], block["ffn"]["masks"][0])
+            out[name] = block
+        new["segments"].append(out)
+    return new
+
+
+def _mask_ids(cfg: ModelConfig, b: int, mask_ids, device):
+    if cfg.bayesian and mask_ids is None:
+        return masksembles.mask_ids_for_batch(b, cfg.mask_samples,
+                                              device=device)
+    return mask_ids
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: Params, batch: Params,
+            max_seq: int | None = None,
+            mask_ids: torch.Tensor | None = None,
+            last_index: int | None = None):
+    """Consume the prompt: batch {tokens [B,S]} -> (logits [B,V] at the last
+    position, or at ``last_index`` — the bucketed form — and caches sized
+    ``max_seq`` (default: the prompt length))."""
+    tokens = batch["tokens"]
+    x = layers.embed_tokens(params["embed"], tokens)
+    b, s = x.shape[:2]
+    mask_ids = _mask_ids(cfg, b, mask_ids, x.device)
+    caches = init_cache(cfg, b, max_seq or s, device=x.device)
+    rope = _rope(cfg, torch.arange(s, dtype=torch.int32, device=x.device))
+    x, new_caches = _run_stack(cfg, params, x, mode="prefill", rope=rope,
+                               mask_ids=mask_ids, caches=caches)
+    i = s - 1 if last_index is None else int(last_index)
+    x = layers.norm_apply(params["final_norm"], x[:, i:i + 1], cfg.norm)
+    return layers.lm_head(params["embed"], x)[:, 0], new_caches
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: Params, caches,
+                tokens: torch.Tensor, pos, mask_ids=None):
+    """One serving step: tokens [B,1] + caches @ pos -> (logits [B,V], new
+    caches). ``pos`` is a scalar shared by the batch or a per-row [B]
+    vector (every cache row at its own position)."""
+    x = layers.embed_tokens(params["embed"], tokens)
+    b = x.shape[0]
+    mask_ids = _mask_ids(cfg, b, mask_ids, x.device)
+    p = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    rope = _rope(cfg, p[None] if p.ndim == 0 else p[:, None])
+    x, new_caches = _run_stack(cfg, params, x, mode="decode", rope=rope,
+                               mask_ids=mask_ids, caches=caches, pos=p)
+    x = layers.norm_apply(params["final_norm"], x, cfg.norm)
+    return layers.lm_head(params["embed"], x)[:, 0], new_caches

@@ -1,18 +1,28 @@
-"""Voxel-uncertainty serving: the IVIM half of ``repro.serving.engine``.
+"""One-shot serving engine: voxel uncertainty (IVIM) and Bayesian LM
+generation — the port's ``repro.serving.engine``.
 
-A compiled :class:`~repro_torch.core.plan.PackedPlan` is served on a voxel
-batch or a whole scan: the voxels stream through one per-chunk moments
+IVIM: a compiled :class:`~repro_torch.core.plan.PackedPlan` is served on a
+voxel batch or a whole scan: the voxels stream through one per-chunk moments
 runner in fixed-size chunks (the last one zero-padded, so every launch sees
 one shape), and the per-chunk (mean, std) are reassembled. By default the
 runner is the fused whole-plan kernel with its in-kernel moments epilogue
 (one launch per chunk); the per-op executor (one masked_ffn launch per chunk,
 then two-pass moments) is its fallback.
+
+LM: ``generate`` is greedy generation; ``serve_uncertain`` is the paper's
+technique at LM scale — every request is evaluated under all N fixed
+Masksembles masks (the batch expanded x N once, prefill included), the
+per-token prediction is the mean log-probability over the masks and the
+per-token uncertainty the relative std of the chosen token. Both drive the
+step functions of :mod:`repro_torch.serving.server`: by default one fused
+``fused_decode`` launch per emitted token.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Callable
+import dataclasses
+from typing import Any, Callable
 
 import torch
 
@@ -20,9 +30,11 @@ from repro_torch import device as device_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import scheduler as scheduler_lib
 from repro_torch.core import uncertainty as unc_lib
+from repro_torch.serving import server as server_lib
 
 __all__ = ["plan_chunk_runner", "predict_packed", "predict_volume",
-           "fallback_counts"]
+           "fallback_counts", "ServeConfig", "generate",
+           "uncertainty_decode_step", "serve_uncertain"]
 
 #: Fallbacks to the per-op executor taken by ``fused=None`` runners, keyed
 #: by where the fused path was refused: "build" (no fused lowering) or
@@ -139,3 +151,100 @@ def predict_volume(plan: plan_lib.PackedPlan, volume: torch.Tensor, *,
                                device=device)
     return (mean.reshape(lead + (mean.shape[-1],)),
             std.reshape(lead + (std.shape[-1],)))
+
+
+# ---------------------------------------------------------------------------
+# Bayesian LM serving
+# ---------------------------------------------------------------------------
+
+Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_new_tokens: int = 16
+    greedy: bool = True
+    uncertainty_threshold: float = 0.5   # flag tokens above this rel-unc
+    fused: bool | None = None            # decode executor (True = require
+                                         # fused, False = per-op, None =
+                                         # auto with per-op fallback)
+
+
+@torch.no_grad()
+def generate(model, params: Params, tokens: torch.Tensor,
+             cfg: ServeConfig = ServeConfig(), *,
+             device: torch.device | str | None = None) -> torch.Tensor:
+    """Greedy generation: tokens [B, S] -> [B, S + max_new_tokens] (int32)
+    on ``device`` (None -> the card), where ``params`` must live."""
+    dev = device_lib.resolve(device)
+    tokens = torch.as_tensor(tokens, device=dev).to(torch.int32)
+    s = tokens.shape[1]
+    fns = server_lib.step_fns(model, expand_masks=False, fused=cfg.fused,
+                              device=dev)
+    mean, _, cache = fns.prefill(params, tokens,
+                                 max_seq=s + cfg.max_new_tokens)
+    out = [mean.argmax(-1).to(torch.int32)]
+    for i in range(cfg.max_new_tokens - 1):
+        mean, _, cache = fns.decode(params, cache, out[-1][:, None], s + i)
+        out.append(mean.argmax(-1).to(torch.int32))
+    return torch.cat([tokens, torch.stack(out, 1)], 1)
+
+
+def _expand_for_masks(x: torch.Tensor, n: int) -> torch.Tensor:
+    return x.repeat((n,) + (1,) * (x.ndim - 1))
+
+
+@torch.no_grad()
+def uncertainty_decode_step(model, params: Params, caches,
+                            tokens: torch.Tensor, pos):
+    """One Bayesian decode step on a mask-expanded batch [N*B, 1], per-op:
+    row j uses mask j // B. Returns (mean_logprobs [B, V],
+    rel_uncertainty [B], new caches) — the plain form of the server's
+    decode step."""
+    from repro_torch.models import transformer
+    cfg = model.cfg
+    n = max(cfg.mask_samples, 1)
+    ids = (torch.arange(n, device=tokens.device)
+           .repeat_interleave(tokens.shape[0] // n) if cfg.bayesian
+           else None)
+    logits, caches = transformer.decode_step(cfg, params, caches, tokens,
+                                             pos, mask_ids=ids)
+    mean, rel = server_lib.posterior(logits, n)
+    return mean, rel, caches
+
+
+@torch.no_grad()
+def serve_uncertain(model, params: Params, tokens: torch.Tensor,
+                    cfg: ServeConfig = ServeConfig(), *,
+                    device: torch.device | str | None = None):
+    """Bayesian generation with per-token uncertainty, on ``device`` (None
+    -> the card), where ``params`` must live.
+
+    Returns (generated [B, S+T] int32, rel_uncertainty [B, T],
+    flags [B, T]). The request batch is expanded x N once (prefill
+    included): every decode step reads the weights once for all N·B rows.
+    """
+    if not model.cfg.bayesian:
+        raise ValueError("serve_uncertain requires mask_samples > 0")
+    dev = device_lib.resolve(device)
+    n = model.cfg.mask_samples
+    tokens = torch.as_tensor(tokens, device=dev).to(torch.int32)
+    s = tokens.shape[1]
+    fns = server_lib.step_fns(model, fused=cfg.fused, device=dev)
+    outs, uncs = [], []
+    # Each step's rel-uncertainty describes the argmax of the distribution
+    # it produced, i.e. the NEXT emitted token: token i pairs with the
+    # uncertainty of the step that chose it (prefill for token 0), and the
+    # last decode's (an un-emitted token) is dropped.
+    mean, unc_next, caches = fns.prefill(params, _expand_for_masks(tokens, n),
+                                         max_seq=s + cfg.max_new_tokens)
+    cur = mean.argmax(-1).to(torch.int32)
+    for i in range(cfg.max_new_tokens):
+        outs.append(cur)
+        uncs.append(unc_next)
+        mean, unc_next, caches = fns.decode(
+            params, caches, _expand_for_masks(cur, n)[:, None], s + i)
+        cur = mean.argmax(-1).to(torch.int32)
+    gen = torch.cat([tokens, torch.stack(outs, 1)], 1)
+    unc = torch.stack(uncs, 1)
+    return gen, unc, unc > cfg.uncertainty_threshold

@@ -8,21 +8,29 @@ CUDA kernel has no CPU mode. On a machine with an H100 run them with
 This file imports no JAX (the card's machine has none); the CPU parity of
 the plain versions against the JAX package is tests/test_torch_kernels.py.
 Tolerances: 1e-4 for a kernel's forward values (fp32 sums in another order
-than cuBLAS), 2e-4 for moments (the reference's fused-vs-per-op bar).
+than cuBLAS), 2e-4 for moments (the reference's fused-vs-per-op bar); the
+decode kernel's bf16 k/v outputs within one bf16 ulp of the plain version's
+plus 1e-5 of the tensor's largest value (fp32 values that differ by sums
+taken in another order, each rounded to bf16).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import registry
 from repro_torch.core import masks as masks_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.ivim import model as ivim_model
+from repro_torch.kernels.fused_decode import ops as dops
+from repro_torch.models import layers, model as lm_model, transformer
 from repro_torch.kernels.fused_plan import ops as fops
 from repro_torch.kernels.fused_plan import ref as fref
 from repro_torch.kernels.masked_ffn import ops as mops
 from repro_torch.kernels.masked_ffn import ref as mref
-from repro_torch.serving import engine
+from repro_torch.serving import engine, server
 
 TOL_FWD = 1e-4
 TOL_MOMENTS = 2e-4
@@ -190,3 +198,130 @@ def test_volume_on_card_matches_unpacked(cuda):
         for g, w in zip((mean, std), want):
             torch.testing.assert_close(g.reshape(-1, 4), w,
                                        rtol=TOL_MOMENTS, atol=TOL_MOMENTS)
+
+
+# ---------------------------------------------------------------------------
+# the fused decode step
+# ---------------------------------------------------------------------------
+
+
+def _within_bf16_ulp(got: torch.Tensor, want: torch.Tensor) -> None:
+    """One bf16 ulp of the plain value, plus fp32 noise at the tensor's
+    scale (1e-5 x max |want|): the two fp32 values round to bf16 apart, and
+    near zero the noise of sums taken in another order exceeds an ulp."""
+    got, want = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
+                     - 7)
+    err = (got - want).abs()
+    assert bool((err <= ulp + 1e-5 * want.abs().max()).all()), \
+        float(err.max())
+
+
+def _decode_inputs(cfg, device, *, b=3, plen=5, max_seq=9, expand=True,
+                   pack=False, kv_bf16=False, inactive=False, seed=0):
+    """One pool decode step's kernel operands: a prefilled mask-major pool
+    of b requests (n * b rows) at position ``plen``."""
+    params = transformer.init(cfg, torch.Generator(device).manual_seed(seed),
+                              device=device)
+    if pack:
+        params = transformer.pack_ffn_params(cfg, params)
+        cfg = dataclasses.replace(cfg, packed_ffn_serving=True)
+    if kv_bf16:
+        cfg = dataclasses.replace(cfg, kv_dtype="bfloat16")
+    n = cfg.mask_samples if expand else 1
+    rows = n * b
+    gen = torch.Generator().manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab_size, (rows, plen), generator=gen)
+    toks = toks.to(device)
+    ids = torch.arange(n, device=device).repeat_interleave(b) \
+        if expand else None
+    _, caches = transformer.prefill(cfg, params, {"tokens": toks},
+                                    max_seq=max_seq, mask_ids=ids)
+    spec = plan_lib.lower_fused_decode(cfg, expand_masks=expand)
+    flat = plan_lib._decode_flat_params(spec, cfg, params, rows, expand)
+    fc = plan_lib._decode_flat_caches(cfg, caches)
+    pos = torch.full((rows,), plen, dtype=torch.int32, device=device)
+    if inactive:
+        pos[1] = -1
+    rot = next(s.rot_dim for s in spec.steps if s.kind == "attn")
+    x = layers.embed_tokens(params["embed"], toks[:, -1])
+    cos, sin = layers.rope_cos_sin(pos, rot, cfg.rope_theta)
+    return spec, (x, flat, fc, pos, cos, sin)
+
+
+_SMOKE = registry.smoke_config
+DECODE_CASES = {
+    "masked": (_SMOKE("qwen2-1.5b", n_layers=2), {}),
+    "packed": (_SMOKE("qwen2-1.5b", n_layers=2), {"pack": True}),
+    "n1": (_SMOKE("qwen2-1.5b", n_layers=2), {"expand": False, "b": 5}),
+    "layernorm_gelu_mlp": (_SMOKE("granite-20b", n_layers=2), {}),
+    "partial_rotary": (_SMOKE("stablelm-12b", n_layers=2), {}),
+    "window": (_SMOKE("qwen2-1.5b", local_window=4,
+                      segments_override=((("local_attn",), 2),)),
+               {"plen": 6, "max_seq": 10}),
+    "ragged": (_SMOKE("qwen2-1.5b", n_layers=1, d_model=40, head_dim=10,
+                      d_ff=72, vocab_size=100), {"plen": 6, "max_seq": 7}),
+    "inactive_row": (_SMOKE("qwen2-1.5b", n_layers=2), {"inactive": True}),
+    "kv_bf16": (_SMOKE("qwen2-1.5b", n_layers=2), {"kv_bf16": True}),
+    "long_cache": (_SMOKE("qwen2-1.5b", n_layers=1),
+                   {"b": 2, "plen": 280, "max_seq": 300}),
+}
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("name", sorted(DECODE_CASES))
+def test_fused_decode_kernel_matches_plain(cuda, name, dtype):
+    cfg, kw = DECODE_CASES[name]
+    cfg = dataclasses.replace(cfg, dtype=getattr(torch, dtype))
+    spec, args = _decode_inputs(cfg, cuda, **kw)
+    before = dops.fused_decode.launches
+    got = dops.fused_decode(spec, *args)
+    assert dops.fused_decode.launches == before + 1
+    stages = dops.stage_ms(spec, args[0].shape[0], cuda)
+    assert set(stages) == set(dops.stage_names(spec))
+    assert all(t >= 0 for t in stages.values())
+    want = dops.fused_decode_ref(spec, *args)
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=TOL_FWD, atol=TOL_FWD)
+    for g, w in zip(got[2:], want[2:]):
+        assert g.dtype == args[0].dtype
+        if g.dtype == torch.bfloat16:
+            _within_bf16_ulp(g, w)
+        else:
+            torch.testing.assert_close(g, w, rtol=TOL_FWD, atol=TOL_FWD)
+
+
+def test_serve_uncertain_on_card_fused_matches_per_op(cuda):
+    """The LM path at smoke size: one fused launch per decode step, and the
+    fused leg agrees with the per-op leg (tokens equal, rel-unc within the
+    reference's posterior tolerance)."""
+    cfg = _SMOKE("qwen2-1.5b", n_layers=2)
+    model = lm_model.build_model(cfg)
+    params = model.init(torch.Generator(cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (3, 6),
+                         generator=torch.Generator().manual_seed(1))
+    outs = {}
+    for fused in (None, False):
+        before = dops.fused_decode.launches
+        outs[fused] = engine.serve_uncertain(
+            model, params, toks, engine.ServeConfig(max_new_tokens=5,
+                                                    fused=fused),
+            device=cuda)
+        assert dops.fused_decode.launches - before == \
+            (5 if fused is None else 0)
+    assert server.step_fns(model, device=cuda).fused_live()
+    torch.testing.assert_close(outs[None][0], outs[False][0], rtol=0, atol=0)
+    torch.testing.assert_close(outs[None][1], outs[False][1], rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_fused_decode_refuses_bad_operands(cuda):
+    cfg, kw = DECODE_CASES["masked"]
+    spec, (x, flat, fc, pos, cos, sin) = _decode_inputs(cfg, cuda, **kw)
+    with pytest.raises(ValueError, match="pos must be int32"):
+        dops.fused_decode(spec, x, flat, fc, pos.long(), cos, sin)
+    with pytest.raises(ValueError, match="cache must be"):
+        dops.fused_decode(spec, x, flat, (fc[0].cpu(),) + fc[1:], pos, cos,
+                          sin)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        dops.fused_decode(spec, x.double(), flat, fc, pos, cos, sin)

@@ -9,9 +9,11 @@ import pytest
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.configs import registry
 from repro_torch.core import plan as plan_lib
 from repro_torch.ivim import model as ivim_model
-from repro_torch.serving import engine
+from repro_torch.models import model as lm_model
+from repro_torch.serving import engine, server
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -26,13 +28,13 @@ def test_port_imports_no_jax_and_no_reference():
         "bad = [k for k in sys.modules if k in ('jax', 'repro') or "
         "k.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 20, names\n"
+        "assert len(names) >= 33, names\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(SRC),
                          capture_output=True, text=True, timeout=120,
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 33
 
 
 def _tiny_plan():
@@ -47,7 +49,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     instead of running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     plan, x = _tiny_plan()
+    cfg = registry.smoke_config("qwen2-1.5b", n_layers=1)
+    lm = lm_model.build_model(cfg)
+    toks = torch.zeros((1, 3), dtype=torch.int32)
     calls = [
+        lambda: engine.generate(lm, {}, toks),
+        lambda: engine.serve_uncertain(lm, {}, toks),
+        lambda: server.step_fns(lm),
+        lambda: plan_lib.compile_decode_step(cfg),
+        lambda: lm.init(torch.Generator().manual_seed(0)),
         lambda: engine.predict_volume(plan, x[None]),
         lambda: engine.predict_packed(plan, x),
         lambda: engine.plan_chunk_runner(plan),
