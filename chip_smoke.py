@@ -17,22 +17,35 @@ and read just after:
   ``serving.engine.serve_uncertain`` serves 8 requests x 128-token prompts
   and generates 32 tokens (a 32-row mask-major pool), fused and per-op,
   then the same in fp32.
+* int8 serving: the same IVIM slab at ``Precision("int8")`` (int8 weights,
+  bf16 scales, dequantized in the kernels), fused and per-op; and the same
+  LM traffic with an int8 KV cache (``kv_dtype="int8"``), which has no
+  fused lowering and runs the per-op decode step.
 
 Phases, each on its own line; any failure raises and exits nonzero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions, and the kernels' build (nvcc, from csrc/) with its time;
-  2. kernels vs plain: each kernel against its ref.py version on the card at
-     the main shapes and at ragged shapes: max abs error, kernel ms, plain
-     ms and the bound from bytes and FLOPs;
+  2. the int8 quantizer on the card bit-equal to the CPU (the dense plan's
+     int8 weights and bf16 scales); then kernels vs plain: each kernel, fp32
+     and int8 body, against its ref.py version on the card at the main
+     shapes and at ragged shapes: max abs error, kernel ms, plain ms, the
+     bound from bytes and FLOPs, and the parameter bytes the kernel reads;
   3. IVIM main path: the volume served fused and per-op, and through the
      plain fused_moments_ref, each held to the unpacked model at 2e-4, with
-     the launch counts of each leg asserted and voxels/s printed;
+     the launch counts of each leg asserted and voxels/s printed; then at
+     int8: fused (one int8 moments launch a chunk) and per-op (one int8
+     masked_ffn launch a chunk) within 2e-4 of each other and 2e-2 of the
+     fp32 model, the int8 parameter bytes at most 0.35x the fp32 ones;
   4. LM kernel vs plain at full width (masked and packed FFN, bf16, and
      the fp32 copy) and at a ragged smoke shape, with the per-op step's
      time and the kernel's per-stage times beside it;
   5. LM main path: ``serve_uncertain`` fused and per-op in bf16 and fp32,
      launch counts asserted (one fused_decode launch per emitted token on
      the fused legs, none on the per-op legs), fp32 legs held together;
+     then bf16 with the int8 KV cache: ``quantize_kv`` bit-equal to the
+     CPU, every cached vector within half an int8 step of its value, no
+     fused_decode launch, tokens compared with the bf16-KV per-op leg
+     (reported, not gated);
   6. one JSON line with every kernel's numbers, then the device line.
 
 Weights are random from ``torch.Generator`` seeds (IVIM: seed 0 with
@@ -56,6 +69,14 @@ CHUNK = 4096
 VOLUME = (128, 128, 24)
 TOL_MOMENTS = 2e-4      # the reference's fused-vs-per-op tolerance
 TOL_SAMPLES = 1e-4      # fp32 sums in another order than the batched GEMM
+# int8 bodies vs plain, and int8 fused vs per-op: the reference's int8 bar
+# (tests/test_quantized.py); the dequantized weights are exact in fp32, so
+# only the order of the sums differs
+TOL_INT8 = 2e-4
+# int8 vs the fp32 model: the reference's FP32_TOL["ivim"]
+TOL_INT8_VS_FP32 = 2e-2
+# int8 parameter bytes over fp32 ones: the reference's weight-bytes gate
+INT8_BYTES_GATE = 0.35
 LM_ARCH, LM_MASKS, LM_BATCH, LM_PROMPT, LM_NEW = "qwen2-1.5b", 4, 8, 128, 32
 # fused_decode vs its plain version: fp32 sums in another order (split
 # reductions meet in atomics) over 28 layers of 1,536- to 8,960-long
@@ -236,7 +257,9 @@ def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
     del caches32
 
     # ---- phase 5: the LM main path ----------------------------------------
-    def leg(c, p, fused):
+    def leg(c, p, fused, fused_steps=LM_NEW):
+        """One serve_uncertain leg; ``fused_steps`` fused_decode launches
+        expected when ``fused`` is None (auto)."""
         mk = lm_model.build_model(c)
         fns = server.step_fns(mk, fused=fused, device=dev)
         torch.cuda.synchronize()
@@ -254,12 +277,12 @@ def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         counts = tuple(ctr.launches for ctr in counters)
-        expect = (0, 0, 0, LM_NEW if fused is None else 0)
+        expect = (0, 0, 0, fused_steps if fused is None else 0)
         if counts != expect:
             raise AssertionError(f"LM {c.dtype} fused={fused} launches "
                                  f"(masked_ffn, samples, moments, decode) = "
                                  f"{counts}, expected {expect}")
-        if fused is None and not fns.fused_live():
+        if fused is None and fused_steps and not fns.fused_live():
             raise AssertionError("fused leg fell back to the per-op path")
         gen, unc, _ = out
         if gen.shape != (LM_BATCH, LM_PROMPT + LM_NEW) or \
@@ -267,8 +290,8 @@ def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
             raise AssertionError(f"LM output {tuple(gen.shape)}, finite "
                                  f"{bool(torch.isfinite(unc).all())}")
         step_ms = 1e3 * (secs - prefill_s) / LM_NEW
-        _phase("lm_main_path", dtype=c.dtype,
-               leg="fused" if fused is None else "per_op",
+        _phase("lm_main_path", dtype=c.dtype, kv_dtype=c.kv_dtype or "model",
+               leg="fused" if fused is None and fused_steps else "per_op",
                seconds=f"{secs:.4f}", prefill_s=f"{prefill_s:.4f}",
                decode_ms_per_step=f"{step_ms:.3f}",
                tokens_per_s=f"{LM_BATCH * LM_NEW / secs:.1f}",
@@ -283,6 +306,46 @@ def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
                  .float().mean())
     _phase("lm_agreement", dtype="bf16", tokens_equal_share=same,
            note="bf16 fused vs per-op is reported, not gated")
+
+    # ---- phase 5 with the int8 KV cache -----------------------------------
+    cfg8 = dataclasses.replace(cfg, kv_dtype="int8")
+    caches_bf, _ = pool(cfg, params, LM_MASKS, prompts)
+    caches_q, _ = pool(cfg8, params, LM_MASKS, prompts)
+    x = caches_bf[0]["b0"]["k"][0]                    # one layer's k, bf16
+    for got, want in zip(layers.quantize_kv(x), layers.quantize_kv(x.cpu())):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError("quantize_kv on the card differs from the "
+                                 "CPU's")
+    worst = 0.0
+    for seg_bf, seg_q in zip(caches_bf, caches_q):
+        for b, c_bf in seg_bf.items():
+            for name in ("k", "v"):
+                val = c_bf[name].float()
+                sc = seg_q[b][name + "scale"][..., None]
+                err = (seg_q[b][name].float() * sc - val).abs()
+                # half a step, plus the fp32 rounding of x / s and q * s
+                slack = 0.5 * sc + 1e-6 * val.abs()
+                if not bool((err <= slack).all()):
+                    raise AssertionError(f"int8 {name} cache beyond half a "
+                                         f"step: {float(err.max())}")
+                worst = max(worst, float((err / sc.clamp_min(1e-30))
+                                         .max()))
+    _phase("lm_int8_kv", quantize_kv_bit_equal_to_cpu=True,
+           max_err_in_steps=f"{worst:.4f}", cache_mbytes=sum(
+               nbytes(*c.values()) for seg in caches_q
+               for c in seg.values()) / 1e6)
+    del caches_bf, caches_q
+    try:
+        plan_lib.lower_fused_decode(cfg8)
+    except plan_lib.FusedPlanUnsupported:
+        pass
+    else:
+        raise AssertionError("int8 KV lowered to the fused decode step")
+    legs[("int8kv", None)] = leg(cfg8, params, None, fused_steps=0)
+    same8 = float((legs[("int8kv", None)][0][0]
+                   == legs[("bf16", False)][0][0]).float().mean())
+    _phase("lm_agreement", kv_dtype="int8", tokens_equal_share_vs_bf16_kv=same8,
+           note="int8 KV vs bf16 KV (both per-op) is reported, not gated")
     del params
     for fused in (None, False):
         legs[("fp32", fused)] = leg(cfg32, params32, fused)
@@ -411,61 +474,92 @@ def main() -> int:
                           generator=torch.Generator(dev).manual_seed(3),
                           device=dev)
 
-    # ---- phase 2: every kernel against its plain version ------------------
+    # ---- phase 2: the int8 quantizer, then every kernel against its plain
+    # version ----------------------------------------------------------------
+    int8 = plan_lib.Precision("int8")
+    _, on_card = plan_lib.lower_fused(plan.with_precision(int8))
+    _, on_cpu = plan_lib.lower_fused(plan.to("cpu").with_precision(int8))
+    for got, want in zip(on_card, on_cpu):
+        if got.dtype != want.dtype or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"int8 lowering on the card differs from "
+                                 f"the CPU's ({got.dtype}, {want.dtype})")
+    _phase("quantizer", plan="dense", tensors=len(on_card),
+           int8_values=sum(t.numel() for t in on_card
+                           if t.dtype == torch.int8),
+           bit_equal_to_cpu=True)
     kernels = {}
 
-    def pair_case(p, x):
+    def pair_case(p, x, quant):
         body = p.params["body"]
-        b2 = torch.zeros(body["w2p"].shape[-1], device=dev)
-        return (x, body["w1p"], body["b1p"], body["w2p"], b2)
+        d2 = body["w2p"].shape[-1]
+        if not quant:
+            return (x, body["w1p"], body["b1p"], body["w2p"],
+                    torch.zeros(d2, device=dev))
+        q1, s1 = plan_lib._quantize_weight(body["w1p"])
+        q2, s2 = plan_lib._quantize_weight(body["w2p"])
+        return (x, q1, plan_lib._low_bias(body["b1p"]), q2,
+                torch.zeros(d2, dtype=torch.bfloat16, device=dev), s1, s2)
 
-    for shape_name, p, x in (("main", plan, voxels[:CHUNK]),
-                             ("ragged", small_plan, x_ragged)):
-        args = pair_case(p, x)
+    for quant, shape_name, p, x in (
+            (q, name, p, x) for q in (False, True)
+            for name, p, x in (("main", plan, voxels[:CHUNK]),
+                               ("ragged", small_plan, x_ragged))):
+        sfx = "_int8" if quant else ""
+        args = pair_case(p, x, quant)
         n, d, k = args[1].shape
         d2 = args[3].shape[-1]
         err = max_err([mffn_ops.masked_ffn(*args)],
-                      [mffn_ref.masked_ffn_ref(*args)], TOL_SAMPLES)
+                      [mffn_ref.masked_ffn_ref(*args)],
+                      TOL_INT8 if quant else TOL_SAMPLES)
         flops = 2 * n * x.shape[0] * (d * k + k * d2)
-        moved = nbytes(*args) + 4 * n * x.shape[0] * d2
-        rec = {"name": "masked_ffn", "route": "cuda",
+        w_bytes = nbytes(*args[1:])
+        moved = nbytes(x) + w_bytes + 4 * n * x.shape[0] * d2
+        rec = {"name": "masked_ffn" + sfx, "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/masked_ffn.cu",
-               "replaces": "src/repro/kernels/masked_ffn/kernel.py:79",
+               "replaces": "src/repro/kernels/masked_ffn/kernel.py:60"
+                           " (_ffn_kernel_q, pallas_call :140)" if quant
+                           else "src/repro/kernels/masked_ffn/kernel.py:79",
                "shape": shape_name, "max_abs_err": err,
                "ms": time_ms(lambda: mffn_ops.masked_ffn(*args)),
-               "plain_ms": time_ms(lambda: mffn_ref.masked_ffn_ref(*args))}
+               "plain_ms": time_ms(lambda: mffn_ref.masked_ffn_ref(*args)),
+               "weight_bytes": w_bytes}
         rec["bound_ms"], rec["bound_by"] = bound(flops, moved)
-        kernels.setdefault("masked_ffn", []).append(rec)
+        kernels.setdefault(rec["name"], []).append(rec)
 
-        spec, params = plan_lib.lower_fused(p)
+        pp = p.with_precision(int8) if quant else p
+        spec, params = plan_lib.lower_fused(pp)
         fp = fp_ops.pack(spec, params)
         b = x.shape[0]
         flops = p.traffic(b, 4, fused=True, moments=True).flops
+        at = ("src/repro/kernels/fused_plan/kernel.py:52 (_dense ws "
+              "dequant; " if quant else
+              "src/repro/kernels/fused_plan/kernel.py:106 (")
         cases = (
-            ("fused_plan_samples", "src/repro/kernels/fused_plan/kernel.py:106"
-             " (pallas_call :165, moments=False)",
+            ("fused_plan_samples", at + "pallas_call :165, moments=False)",
              lambda: (fp_ops.fused_samples(fp, x),),
              lambda: (fp_ref.fused_plan_ref(spec, x, params),),
-             TOL_SAMPLES, 4 * spec.n_rows * b * spec.d_out),
-            ("fused_plan_moments", "src/repro/kernels/fused_plan/kernel.py:106"
-             " (pallas_call :222, moments=True)",
+             TOL_INT8 if quant else TOL_SAMPLES,
+             4 * spec.n_rows * b * spec.d_out),
+            ("fused_plan_moments", at + "pallas_call :222, moments=True)",
              lambda: fp_ops.fused_moments(fp, x),
              lambda: fp_ref.fused_moments_ref(spec, x, params),
-             TOL_MOMENTS, 2 * 4 * b * spec.groups * spec.d_out))
+             TOL_INT8 if quant else TOL_MOMENTS,
+             2 * 4 * b * spec.groups * spec.d_out))
         for name, replaces, run, plain, tol, out_bytes in cases:
-            rec = {"name": name, "route": "cuda",
+            rec = {"name": name + sfx, "route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/fused_plan.cu",
                    "replaces": replaces, "shape": shape_name,
                    "max_abs_err": max_err(run(), plain(), tol),
-                   "ms": time_ms(run), "plain_ms": time_ms(plain)}
+                   "ms": time_ms(run), "plain_ms": time_ms(plain),
+                   "weight_bytes": fp.nbytes}
             rec["bound_ms"], rec["bound_by"] = bound(
-                flops, nbytes(x, fp.flat) + out_bytes)
-            kernels.setdefault(name, []).append(rec)
+                flops, nbytes(x) + fp.nbytes + out_bytes)
+            kernels.setdefault(rec["name"], []).append(rec)
     for recs in kernels.values():
         for rec in recs:
             _phase("kernel", **{k: rec[k] for k in (
                 "name", "shape", "max_abs_err", "ms", "plain_ms",
-                "bound_ms", "bound_by")})
+                "bound_ms", "bound_by", "weight_bytes")})
 
     # ---- phase 3: the main path --------------------------------------------
     ref_mean, ref_std = [], []
@@ -480,7 +574,7 @@ def main() -> int:
 
     def run_leg(fn):
         for c in counters:
-            c.launches = 0
+            c.launches = c.int8_launches = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = fn()
@@ -488,7 +582,10 @@ def main() -> int:
         secs = time.perf_counter() - t
         return out, secs, tuple(c.launches for c in counters)
 
-    def plain_volume():
+    def int8_counts():
+        return tuple(c.int8_launches for c in counters)
+
+    def plain_volume(plan=plan):
         spec, params = plan_lib.lower_fused(plan)
         lo_r = torch.tensor([r[0] for r in plan.out_ranges], device=dev)
         hi_r = torch.tensor([r[1] for r in plan.out_ranges], device=dev)
@@ -530,10 +627,59 @@ def main() -> int:
         plan, chunk0, fused=True, device=dev))
     if counts != (0, 1, 0):
         raise AssertionError(f"packed_apply(fused=True) launches {counts}")
+    samples_launches = counts[1]
     err = max_err([samples], [ivim_model.apply_all_samples(model, chunk0)],
                   TOL_MOMENTS)
     _phase("main_path", leg="packed_apply_fused", voxels=CHUNK,
            max_abs_err=err, launches=counts)
+
+    # ---- phase 3 at int8: the same slab at Precision("int8") --------------
+    qplan = plan.with_precision(int8)
+    q_legs = {
+        "fused": (lambda: engine.predict_volume(
+            qplan, volume, chunk=CHUNK, fused=True, device=dev),
+            (0, 0, n_chunks)),
+        "per_op": (lambda: engine.predict_volume(
+            qplan, volume, chunk=CHUNK, fused=False, device=dev),
+            (n_chunks, 0, 0)),
+        "plain": (lambda: plain_volume(qplan), (0, 0, 0)),
+    }
+    q_out, q_launches = {}, {}
+    for leg, (fn, expect) in q_legs.items():
+        (mean, std), secs, counts = run_leg(fn)
+        if counts != expect or int8_counts() != expect:
+            raise AssertionError(
+                f"int8 {leg} leg launches (masked_ffn, samples, moments) = "
+                f"{counts}, of them int8 {int8_counts()}; expected {expect}")
+        if not (torch.isfinite(mean).all() and torch.isfinite(std).all()):
+            raise AssertionError(f"int8 {leg} leg: non-finite moments")
+        err = max_err((mean, std), want, TOL_INT8_VS_FP32)
+        _phase("main_path_int8", leg=leg, voxels=n_vox, chunks=n_chunks,
+               seconds=f"{secs:.4f}", voxels_per_s=f"{n_vox / secs:.0f}",
+               max_abs_err_vs_fp32=err, launches=counts,
+               int8_launches=int8_counts())
+        q_out[leg], q_launches[leg] = (mean, std), counts
+    fused_vs_per_op = max_err(q_out["fused"], q_out["per_op"], TOL_INT8)
+    fused_vs_plain = max_err(q_out["fused"], q_out["plain"], TOL_INT8)
+    fp32_bytes = fp_ops.pack(*plan_lib.lower_fused(plan)).flat.numel() * 4
+    int8_bytes = fp_ops.pack(*plan_lib.lower_fused(qplan)).nbytes
+    if int8_bytes > INT8_BYTES_GATE * fp32_bytes:
+        raise AssertionError(f"int8 parameters {int8_bytes} bytes > "
+                             f"{INT8_BYTES_GATE} x fp32 {fp32_bytes}")
+    _phase("int8_agreement", fused_vs_per_op=fused_vs_per_op,
+           fused_vs_plain=fused_vs_plain, param_bytes_int8=int8_bytes,
+           param_bytes_fp32=fp32_bytes,
+           ratio=f"{int8_bytes / fp32_bytes:.4f}")
+    q_samples, _, counts = run_leg(lambda: ivim_model.packed_apply(
+        qplan, chunk0, fused=True, device=dev))
+    if counts != (0, 1, 0) or int8_counts() != (0, 1, 0):
+        raise AssertionError(f"int8 packed_apply(fused=True) launches "
+                             f"{counts}, int8 {int8_counts()}")
+    err = max_err([q_samples], [ivim_model.apply_all_samples(model, chunk0)],
+                  TOL_INT8_VS_FP32)
+    _phase("main_path_int8", leg="packed_apply_fused", voxels=CHUNK,
+           max_abs_err_vs_fp32=err, launches=counts)
+    q_launches["packed_apply"] = counts
 
     # ---- phases 4 and 5: the LM kernel and the LM main path ---------------
     from repro_torch.kernels.fused_decode import ops as fd_ops
@@ -542,8 +688,11 @@ def main() -> int:
 
     # ---- phase 6: the kernels line, then the device line ------------------
     main_launches = {"masked_ffn": launches["per_op"][0],
-                     "fused_plan_samples": counts[1],
-                     "fused_plan_moments": launches["fused"][2]}
+                     "fused_plan_samples": samples_launches,
+                     "fused_plan_moments": launches["fused"][2],
+                     "masked_ffn_int8": q_launches["per_op"][0],
+                     "fused_plan_samples_int8": q_launches["packed_apply"][1],
+                     "fused_plan_moments_int8": q_launches["fused"][2]}
     line = []
     for name, recs in kernels.items():
         main = next(r for r in recs if r["shape"] == "main")
@@ -554,6 +703,7 @@ def main() -> int:
             "ms": main["ms"], "kernel_ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
+            "weight_bytes": main["weight_bytes"],
             "ragged_ms": next(r["ms"] for r in recs
                               if r["shape"] == "ragged")})
     line.append(decode_rec)

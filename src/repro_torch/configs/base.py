@@ -117,7 +117,9 @@ class ModelConfig:
     analysis_unroll: bool = False
     dtype: Any = torch.bfloat16      # activation/param storage dtype
     # KV cache storage dtype tag: "" = cache in `dtype`; "bfloat16" keeps
-    # the cache in bf16; "int8" serves through the reference only so far.
+    # the cache in bf16; "int8" stores one int8 vector and one fp32 scale
+    # per cached position and serves through the per-op decode step (it
+    # has no fused decode lowering).
     kv_dtype: str = ""
     remat: str = "full"              # none | full | dots
     attn_chunk: int = 1024           # q-chunk of the chunked prefill attention

@@ -34,8 +34,10 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import weakref
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch import device as device_lib
@@ -44,6 +46,7 @@ from repro_torch.core import masksembles
 from repro_torch.core import packing
 from repro_torch.core import scheduler as sched_lib
 from repro_torch.core import uncertainty as unc_lib
+from repro_torch.distributed import compression
 from repro_torch.kernels.fused_decode import ops as fd_ops
 from repro_torch.kernels.fused_plan import ops as fp_ops
 from repro_torch.kernels.fused_plan import ref as fused_ref
@@ -54,6 +57,7 @@ Params = dict[str, Any]
 
 __all__ = ["SharedDense", "PackedPair", "Activation", "OutputHead",
            "PackedPlan", "Precision", "activation_fn", "tree_map",
+           "params_from_jax",
            "fold_bn_dense", "fold_bn_ivim", "compile_ivim",
            "compile_masked_ffn", "execute", "lower_fused", "execute_fused",
            "fused_executor", "FusedPlanUnsupported", "fused_lowering_counts",
@@ -68,14 +72,16 @@ activation_fn = fused_ref.act_fn
 @dataclasses.dataclass(frozen=True)
 class Precision:
     """Serving precision of a :class:`PackedPlan`: the storage dtype of the
-    packed dense weights. Only "fp32" runs in this port so far."""
+    packed dense weights. "fp32" serves the master weights as they are;
+    "int8" quantizes each weight per output channel (symmetric, bf16
+    scales) and stores biases as bf16 — once per lowering for the fused
+    executor, once per plan for the per-op one — and the kernels
+    dequantize next to the product. The KV-cache dtype is a model knob
+    (``ModelConfig.kv_dtype``), not a plan property."""
     weights: str = "fp32"
 
     def __post_init__(self) -> None:
-        if self.weights == "int8":
-            raise ValueError("int8 weights arrive with the port's int8 slice "
-                             "(ROADMAP queue 1, item 10)")
-        if self.weights != "fp32":
+        if self.weights not in ("fp32", "int8"):
             raise ValueError(f"unknown weight precision {self.weights!r}")
 
 
@@ -199,6 +205,11 @@ class PackedPlan:
         return dataclasses.replace(
             self, params=tree_map(lambda t: t.to(device), self.params))
 
+    def with_precision(self, precision: Precision) -> "PackedPlan":
+        """The same plan (the same fp32 master weights) served at another
+        precision; distinct precisions lower to distinct fused specs."""
+        return dataclasses.replace(self, precision=precision)
+
     def slot_schedule(self, max_slots: int) -> sched_lib.SlotSchedule:
         """The serving-pool row layout this plan's sample axis maps onto."""
         return sched_lib.SlotSchedule(n_masks=self.n_masks,
@@ -222,32 +233,48 @@ class PackedPlan:
         priced once.
         """
         n = self.sample_axis
+        quant = self.precision.weights == "int8"
+        # int8: the matrices at 1 byte, one bf16 scale per output unit, and
+        # bf16 biases; each tensor family priced at its own width
+        wb = 1 if quant else bytes_per_el
+        sb = 2 if quant else 0                    # scale bytes per d_out unit
+        bb = 2 if quant else bytes_per_el         # bias bytes per element
+
+        def wcost(rows: int, d_in: int, d_out: int) -> int:
+            return rows * d_in * d_out * wb + rows * d_out * sb
+
         if not fused:
             schedule = schedule or self.schedule
             w = a = f = loads = 0
             for op in self.pairs:
                 tm = sched_lib.traffic_model(schedule, batch, n, op.d_in,
-                                             op.keep, op.d_out, bytes_per_el)
-                w += tm.weight_bytes
+                                             op.keep, op.d_out, bytes_per_el,
+                                             weight_bytes_per_el=wb)
+                # per load: the two matrices' scales, and the biases
+                # repriced from bytes_per_el to their storage width
+                w += tm.weight_bytes + tm.weight_loads * (
+                    op.keep + op.d_out) * (sb + bb - bytes_per_el)
                 a += tm.act_bytes
                 f += tm.flops
                 loads += tm.weight_loads
             return sched_lib.TrafficModel(weight_bytes=w, act_bytes=a,
                                           flops=f, weight_loads=loads)
-        w_el = flops = 0
+        w_bytes = flops = 0
         d_first = d_last = None
         for op in self.ops:
             if isinstance(op, SharedDense):
-                w_el += op.d_in * op.d_out + op.d_out
+                w_bytes += wcost(1, op.d_in, op.d_out) + op.d_out * bb
                 flops += 2 * batch * op.d_in * op.d_out
             elif isinstance(op, PackedPair):
-                w_el += n * (op.d_in * op.keep + op.keep * op.d_out
-                             + op.keep + op.d_out)
+                w_bytes += wcost(n, op.d_in, op.keep) \
+                    + wcost(n, op.keep, op.d_out) \
+                    + n * (op.keep + op.d_out) * bb
                 flops += 2 * n * batch * (op.d_in * op.keep
                                           + op.keep * op.d_out)
             elif isinstance(op, OutputHead):
                 rows = n if op.per_mask else 1
-                w_el += rows * (op.d_in * op.d_out + op.d_out)
+                w_bytes += wcost(rows, op.d_in, op.d_out) \
+                    + rows * op.d_out * bb
                 flops += 2 * rows * batch * op.d_in * op.d_out
             else:
                 continue
@@ -258,9 +285,34 @@ class PackedPlan:
         out_el = (2 * batch * self.groups * d_last if moments
                   else n * batch * d_last)
         return sched_lib.TrafficModel(
-            weight_bytes=w_el * bytes_per_el,
-            act_bytes=(in_el + out_el) * bytes_per_el, flops=flops,
-            weight_loads=n)
+            weight_bytes=w_bytes, act_bytes=(in_el + out_el) * bytes_per_el,
+            flops=flops, weight_loads=n)
+
+
+def params_from_jax(plan: PackedPlan, params: Params,
+                    device: torch.device | str | None = None) -> PackedPlan:
+    """``plan`` holding another copy of its parameters: ``params`` is a tree
+    shaped like ``plan.params`` (numpy arrays or anything ``np.asarray``
+    takes — e.g. the JAX package's compiled plan's own folded weights),
+    stored as fp32 on ``device`` (None -> the card)."""
+    dev = device_lib.resolve(device)
+
+    def conv(want: torch.Tensor, a) -> torch.Tensor:
+        t = torch.tensor(np.asarray(a, np.float32), device=dev)
+        if t.shape != want.shape:
+            raise ValueError(f"params_from_jax: shape {tuple(t.shape)}, "
+                             f"the plan holds {tuple(want.shape)}")
+        return t
+
+    def walk(want, got):
+        if isinstance(want, dict):
+            if set(want) != set(got):
+                raise ValueError(f"params_from_jax: keys {sorted(got)}, the "
+                                 f"plan holds {sorted(want)}")
+            return {k: walk(want[k], got[k]) for k in want}
+        return conv(want, got)
+
+    return dataclasses.replace(plan, params=walk(plan.params, params))
 
 
 # ---------------------------------------------------------------------------
@@ -366,35 +418,109 @@ def compile_ivim(cfg, params: Params, state: Params) -> PackedPlan:
 # ---------------------------------------------------------------------------
 
 
-def _run_pair(op: PackedPair, p: Params, h: torch.Tensor) -> torch.Tensor:
+def _quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 of one weight set [.., D, K] ->
+    (q int8 [.., D, K], scales bf16 [.., 1, K]): ``compression.
+    quantize_int8`` along each output unit's fan-in (the columns of w).
+    The values are quantized with the fp32 scale; only then is the scale
+    stored as bf16. Both executors share this one quantizer."""
+    q, s = compression.quantize_int8(w.transpose(-1, -2))
+    return (q.transpose(-1, -2).contiguous(),
+            s.transpose(-1, -2).to(torch.bfloat16).contiguous())
+
+
+def _dequantized(w: torch.Tensor) -> torch.Tensor:
+    """A weight round-tripped through the serving quantizer: the fp32 values
+    the int8 kernels compute with, ``float(q) * float(bf16 scale)`` (exact
+    in fp32)."""
+    q, s = _quantize_weight(w)
+    return q.float() * s.float()
+
+
+def _low_bias(b: torch.Tensor) -> torch.Tensor:
+    """Bias storage of the int8 serving bundle: bf16 (widened back to fp32
+    at every use, which is exact)."""
+    return b.to(torch.bfloat16)
+
+
+#: The int8 serving form of a plan's leaves for the per-op executor, made
+#: once per plan object (one per device: ``PackedPlan.to``) and reused by
+#: every chunk, keyed by ``(op name, leaf, form)``.
+_INT8_LEAVES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+_INT8_FORMS: dict[str, Callable] = {
+    "q": _quantize_weight,                     # (int8 q, bf16 scales)
+    "dq": _dequantized,                        # fp32, as the kernels see it
+    "b": _low_bias,                            # bf16, widened by each add
+}
+
+
+@torch.no_grad()
+def _int8_leaf(plan: PackedPlan, name: str, key: str, form: str):
+    cache = _INT8_LEAVES.setdefault(plan, {})
+    if (name, key, form) not in cache:
+        cache[(name, key, form)] = _INT8_FORMS[form](plan.params[name][key])
+    return cache[(name, key, form)]
+
+
+def _weight(plan: PackedPlan, name: str, key: str) -> torch.Tensor:
+    """A weight as the per-op executor multiplies by it at the plan's
+    precision."""
+    if plan.precision.weights == "int8":
+        return _int8_leaf(plan, name, key, "dq")
+    return plan.params[name][key]
+
+
+def _bias(plan: PackedPlan, name: str, key: str) -> torch.Tensor:
+    if plan.precision.weights == "int8":
+        return _int8_leaf(plan, name, key, "b")
+    return plan.params[name][key]
+
+
+def _run_pair(plan: PackedPlan, op: PackedPair,
+              h: torch.Tensor) -> torch.Tensor:
     """One PackedPair. A shared input [B, D] with relu goes through the
-    masked_ffn kernel (b2p is added after it, as a per-sample bias); a
-    per-sample input or another activation takes the batched-product
-    form (same sample-major contraction order)."""
+    masked_ffn kernel (b2p is added after it, as a per-sample bias) — at
+    int8 with the int8 weights, their scales and bf16 biases; a per-sample
+    input or another activation takes the batched-product form (same
+    sample-major contraction order) over dequantized weights."""
+    p, name = plan.params[op.name], op.name
     if h.ndim == 2 and op.activation == "relu":
-        b2 = p.get("b2")
-        if b2 is None:
-            b2 = torch.zeros(p["w2p"].shape[-1], dtype=h.dtype,
-                             device=h.device)
-        y = mffn_ops.masked_ffn(h, p["w1p"], p["b1p"], p["w2p"], b2)
+        if plan.precision.weights == "int8":
+            w1p, s1 = _int8_leaf(plan, name, "w1p", "q")
+            w2p, s2 = _int8_leaf(plan, name, "w2p", "q")
+            b2 = (_int8_leaf(plan, name, "b2", "b") if "b2" in p else
+                  torch.zeros(w2p.shape[-1], dtype=torch.bfloat16,
+                              device=h.device))
+            y = mffn_ops.masked_ffn(h, w1p,
+                                    _int8_leaf(plan, name, "b1p", "b"),
+                                    w2p, b2, s1, s2)
+        else:
+            b2 = p.get("b2")
+            if b2 is None:
+                b2 = torch.zeros(p["w2p"].shape[-1], dtype=h.dtype,
+                                 device=h.device)
+            y = mffn_ops.masked_ffn(h, p["w1p"], p["b1p"], p["w2p"], b2)
         if "b2p" in p:
-            y = y + p["b2p"][:, None, :]
+            y = y + _bias(plan, name, "b2p")[:, None, :]
         return y
     act = activation_fn(op.activation)
-    hm = act(torch.matmul(h, p["w1p"]) + p["b1p"][:, None, :])
-    y = torch.matmul(hm, p["w2p"])
+    hm = act(torch.matmul(h, _weight(plan, name, "w1p"))
+             + _bias(plan, name, "b1p")[:, None, :])
+    y = torch.matmul(hm, _weight(plan, name, "w2p"))
     if "b2p" in p:
-        return y + p["b2p"][:, None, :]
+        return y + _bias(plan, name, "b2p")[:, None, :]
     if "b2" in p:
-        return y + p["b2"]
+        return y + _bias(plan, name, "b2")
     return y
 
 
 def execute(plan: PackedPlan, x: torch.Tensor, *,
             device: torch.device | str | None = None) -> torch.Tensor:
     """Run a PackedPlan on a batch x [B, D] -> samples [N, B, d_out], one op
-    at a time (one masked_ffn launch per relu PackedPair). ``device=None``
-    runs on the card."""
+    at a time (one masked_ffn launch per relu PackedPair). At int8 every
+    weight goes through the serving quantizer (the int8 masked_ffn body on
+    the pair, dequantized weights elsewhere): the values the fused int8
+    kernels compute with. ``device=None`` runs on the card."""
     dev = device_lib.resolve(device)
     plan = plan.to(dev)
     h = x.to(dev).contiguous()
@@ -403,23 +529,23 @@ def execute(plan: PackedPlan, x: torch.Tensor, *,
             h = activation_fn(op.fn)(h)
         elif isinstance(op, SharedDense):
             p = plan.params[op.name]
-            h = h @ p["w"]
+            h = h @ _weight(plan, op.name, "w")
             if "b" in p:
-                h = h + p["b"]
+                h = h + _bias(plan, op.name, "b")
             if op.activation:
                 h = activation_fn(op.activation)(h)
         elif isinstance(op, PackedPair):
-            h = _run_pair(op, plan.params[op.name], h)
+            h = _run_pair(plan, op, h)
         elif isinstance(op, OutputHead):
             p = plan.params[op.name]
             if op.per_mask:
-                h = torch.matmul(h, p["wp"])     # [N,B,k] x [N,k,o]
+                h = torch.matmul(h, _weight(plan, op.name, "wp"))
                 if "bp" in p:
-                    h = h + p["bp"][:, None, :]
+                    h = h + _bias(plan, op.name, "bp")[:, None, :]
             else:
-                h = h @ p["w"]
+                h = h @ _weight(plan, op.name, "w")
             if "b" in p:
-                h = h + p["b"]
+                h = h + _bias(plan, op.name, "b")
             if op.activation:
                 h = activation_fn(op.activation)(h)
         else:
@@ -469,7 +595,13 @@ def lower_fused(plan: PackedPlan
     params in ``param_slots`` order. A trailing :class:`Activation` fuses
     into the preceding dense step; a PackedPair lowers to two dense steps
     (its hidden activation stays on chip). Raises
-    :class:`FusedPlanUnsupported` for op kinds with no fused form."""
+    :class:`FusedPlanUnsupported` for op kinds with no fused form.
+
+    At ``Precision("int8")`` every dense weight is quantized here, once per
+    lowering: the int8 ``w`` and its bf16 per-output-channel scale ``ws``
+    are what the kernels read, and biases are stored as bf16. The fp32
+    default hands over the master tensors themselves and a scale-free
+    spec."""
     steps: list[fused_ref.FusedStep] = []
     params: list[torch.Tensor] = []
     for op in plan.ops:
@@ -504,6 +636,8 @@ def lower_fused(plan: PackedPlan
             params += [p[k] for k in ("b", "bp") if k in p]
         else:
             raise FusedPlanUnsupported(f"op {op!r} has no fused lowering")
+    if plan.precision.weights == "int8":
+        steps, params = _quantize_lowering(steps, params)
     dense = [s for s in steps if s.kind == "dense"]
     if not dense:
         raise FusedPlanUnsupported("fused chain has no dense step")
@@ -511,6 +645,26 @@ def lower_fused(plan: PackedPlan
                                n_masks=plan.n_masks, groups=plan.groups,
                                d_in=dense[0].d_in, d_out=dense[-1].d_out)
     return spec, tuple(params)
+
+
+@torch.no_grad()
+def _quantize_lowering(steps: list, params: list) -> tuple[list, list]:
+    """A lowered chain rewritten to the int8 serving bundle: each dense
+    step's ``w`` becomes (int8 q, bf16 scale), the step is tagged
+    ``w_dtype="int8"`` (``param_slots`` then emits its 'ws' slot after 'w'),
+    and its biases are stored as bf16."""
+    new_steps: list = []
+    new_params: list = []
+    it = iter(params)
+    for st in steps:
+        if st.kind != "dense":
+            new_steps.append(st)
+            continue
+        new_steps.append(dataclasses.replace(st, w_dtype="int8"))
+        new_params += _quantize_weight(next(it))
+        for _ in range(int(st.shared_bias) + int(st.sample_bias)):
+            new_params.append(_low_bias(next(it)))
+    return new_steps, new_params
 
 
 #: Lowerings of the fused executor, keyed by ``(spec, device type,
@@ -949,16 +1103,17 @@ def decode_stage_traffic(spec: fused_ref.FusedDecodeSpec, rows: int,
     kind (``norm``/``attn``/``ffn``/``dense`` — attn includes its KV-cache
     bytes) plus ``interstage`` (activations between launches, and the launch
     count). Weights priced at ``bytes_per_el``, KV rows at the spec's
-    ``kv_dtype`` width, ``kpos`` at 4 bytes."""
+    ``kv_dtype`` width (int8 adds its fp32 scale per cached vector),
+    ``kpos`` at 4 bytes."""
     d, v, n = spec.d_model, spec.vocab, spec.n_samples
     b = rows // n
-    kv_b = {"bfloat16": 2}.get(spec.kv_dtype, bytes_per_el)
+    kv_b = {"bfloat16": 2, "int8": 1}.get(spec.kv_dtype, bytes_per_el)
     acc: dict[str, list[int]] = {}
 
     def add(kind: str, w: int = 0, kv: int = 0, pos: int = 0,
-            fl: int = 0) -> None:
-        cur = acc.setdefault(kind, [0, 0, 0, 0])
-        for j, inc in enumerate((w, kv, pos, fl)):
+            scale: int = 0, fl: int = 0) -> None:
+        cur = acc.setdefault(kind, [0, 0, 0, 0, 0])
+        for j, inc in enumerate((w, kv, pos, scale, fl)):
             cur[j] += inc
 
     layers_l = 0
@@ -974,6 +1129,8 @@ def decode_stage_traffic(spec: fused_ref.FusedDecodeSpec, rows: int,
             add("attn", w=proj,
                 kv=rows * hkv * smax * dh * 2 + rows * hkv * dh * 2,
                 pos=rows * smax + rows,
+                scale=(rows * hkv * smax + rows * hkv
+                       if spec.kv_dtype == "int8" else 0),
                 fl=2 * rows * proj + 4 * rows * hh * dh * (smax + 1))
             layers_l += 1
         elif st.kind == "ffn":
@@ -1002,9 +1159,9 @@ def decode_stage_traffic(spec: fused_ref.FusedDecodeSpec, rows: int,
             + b * v + b
         launches = 2 * layers_l + 2
     out = {kind: sched_lib.TrafficModel(
-        weight_bytes=w * bytes_per_el + kv * kv_b + pos * 4,
+        weight_bytes=w * bytes_per_el + kv * kv_b + pos * 4 + scale * 4,
         act_bytes=0, flops=fl, weight_loads=0)
-        for kind, (w, kv, pos, fl) in acc.items()}
+        for kind, (w, kv, pos, scale, fl) in acc.items()}
     out["interstage"] = sched_lib.TrafficModel(
         weight_bytes=0, act_bytes=act_el * bytes_per_el, flops=0,
         weight_loads=launches)

@@ -80,12 +80,16 @@ class TrafficModel:
 
 def traffic_model(schedule: Schedule, batch: int, n_samples: int,
                   d_in: int, k_hidden: int, d_out: int,
-                  bytes_per_el: int = 4) -> TrafficModel:
+                  bytes_per_el: int = 4, *,
+                  weight_bytes_per_el: int | None = None) -> TrafficModel:
     """Analytic traffic of a packed 2-layer FFN under a schedule: the
     per-sample packed weight set is w1p [d_in, K] + w2p [K, d_out] (+ its
-    biases); the schedule decides how many times it is read."""
-    per_sample_w = (d_in * k_hidden + k_hidden * d_out
-                    + k_hidden + d_out) * bytes_per_el
+    biases); the schedule decides how many times it is read.
+    ``weight_bytes_per_el`` prices the two matrices alone (1 for int8
+    serving; biases stay at ``bytes_per_el``)."""
+    wb = bytes_per_el if weight_bytes_per_el is None else weight_bytes_per_el
+    per_sample_w = (d_in * k_hidden + k_hidden * d_out) * wb \
+        + (k_hidden + d_out) * bytes_per_el
     loads = weight_load_counts(schedule, batch, n_samples)
     weight_bytes = per_sample_w * loads
     act_bytes = (batch * d_in + n_samples * batch * d_out) * bytes_per_el

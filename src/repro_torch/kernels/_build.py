@@ -93,17 +93,20 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_operands(kernel: str, **operands: torch.Tensor) -> torch.device:
-    """Raise unless every operand is a contiguous fp32 tensor on one CUDA
-    device; returns that device."""
+def check_operands(kernel: str, dtypes: dict[str, torch.dtype] | None = None,
+                   **operands: torch.Tensor) -> torch.device:
+    """Raise unless every operand is a contiguous tensor on one CUDA device,
+    of the dtype ``dtypes`` names for it (fp32 where it names none);
+    returns that device."""
     devices = {t.device for t in operands.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{kernel}: operands must share one CUDA device, "
                          f"got {sorted(map(str, devices))}")
     for name, t in operands.items():
-        if t.dtype != torch.float32:
+        want = (dtypes or {}).get(name, torch.float32)
+        if t.dtype != want:
             raise TypeError(f"{kernel}: {name} is {t.dtype}, kernel takes "
-                            f"float32")
+                            f"{str(want).removeprefix('torch.')}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} is not contiguous")
     return devices.pop()

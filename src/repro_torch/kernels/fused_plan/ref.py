@@ -10,7 +10,8 @@ per-op ``plan.execute`` path. The wrappers in ``ops.py`` take them for CPU
 tensors; ``chip_smoke.py`` holds the kernels to them on the card.
 
 Params travel as a flat tuple ordered by :func:`param_slots`: for each dense
-step, ``w`` then (if present) shared bias ``b`` then per-sample bias ``bp``.
+step, ``w``, then its scale ``ws`` when the weight is int8, then (if present)
+shared bias ``b`` and per-sample bias ``bp``.
 """
 
 from __future__ import annotations
@@ -59,8 +60,10 @@ class FusedStep:
     by the sample row when ``per_sample`` (``[n_rows, d_in, d_out]``) and
     shared (``[d_in, d_out]``) otherwise. kind='act': bare elementwise
     nonlinearity (no params; only emitted when it cannot fuse into the
-    preceding dense). ``w_dtype`` tags a quantized weight; only the native
-    fp32 form ("") runs in this port so far.
+    preceding dense). ``w_dtype`` tags the weight's storage: "" (native
+    fp32) or "int8", which carries a per-output-channel bf16 scale ``ws``
+    (``w.shape[:-2] + (1, d_out)``) dequantized next to the product, with
+    bf16 biases.
 
     The serving-decode kinds (:class:`FusedDecodeSpec` chains):
 
@@ -120,10 +123,8 @@ class FusedSpec:
         for s in self.steps:
             if s.kind not in ("dense", "act"):
                 raise FusedPlanUnsupported(f"step kind {s.kind!r}")
-            if s.w_dtype:
-                raise ValueError(
-                    f"w_dtype={s.w_dtype!r}: quantized fused specs arrive "
-                    f"with the port's int8 slice")
+            if s.w_dtype not in ("", "int8"):
+                raise ValueError(f"unknown weight dtype {s.w_dtype!r}")
 
     @property
     def weight_elements(self) -> int:
@@ -152,12 +153,15 @@ def split_prefix(spec: FusedSpec) -> int:
 
 
 def param_slots(spec: FusedSpec) -> tuple[tuple[int, str], ...]:
-    """Flat param ordering: (step index, 'w'|'b'|'bp') per array."""
+    """Flat param ordering: (step index, 'w'|'ws'|'b'|'bp') per array;
+    'ws' follows 'w' iff the step's weight is quantized (``w_dtype``)."""
     slots: list[tuple[int, str]] = []
     for i, st in enumerate(spec.steps):
         if st.kind != "dense":
             continue
         slots.append((i, "w"))
+        if st.w_dtype:
+            slots.append((i, "ws"))
         if st.shared_bias:
             slots.append((i, "b"))
         if st.sample_bias:
@@ -180,7 +184,9 @@ def fused_plan_ref(spec: FusedSpec, x: torch.Tensor,
 
     Shared prefix steps run once on [B, d]; the first per-sample step
     introduces the row axis and the rest of the chain is sample-major
-    batched products (the batch-level contraction order).
+    batched products (the batch-level contraction order). An int8 weight
+    is dequantized next to its product, ``float(q) * float(ws)``, and bf16
+    biases widen at the add.
     """
     table = _slot_table(spec, params)
     h = x
@@ -189,6 +195,8 @@ def fused_plan_ref(spec: FusedSpec, x: torch.Tensor,
             h = act_fn(st.activation)(h)
             continue
         w = table[(i, "w")]
+        if st.w_dtype:
+            w = w.float() * table[(i, "ws")].float()
         if st.per_sample:
             y = torch.matmul(h, w)      # [B,d]|[N,B,d] x [N,d,k] -> [N,B,k]
         else:

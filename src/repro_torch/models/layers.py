@@ -19,13 +19,15 @@ import torch
 
 from repro_torch.core import masks as masks_lib
 from repro_torch.core import plan as plan_lib
+from repro_torch.distributed import compression
 
 Params = dict[str, Any]
 
 __all__ = ["dense_init", "dense", "norm_init", "norm_apply", "rope_cos_sin",
            "apply_rope", "attn_init", "attention_full", "attention_chunked",
            "attention_banded", "attention_decode", "kv_store_dtype",
-           "init_kv_cache", "kv_cache_update", "ffn_init", "ffn_apply",
+           "quantize_kv", "kv_cache_shapes", "init_kv_cache",
+           "kv_cache_update", "ffn_init", "ffn_apply",
            "embed_init", "embed_tokens", "lm_head"]
 
 
@@ -219,12 +221,18 @@ def attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kpos: torch.Tensor,
-                     pos: torch.Tensor) -> torch.Tensor:
+                     pos: torch.Tensor, k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """One-token decode: q [B,H,1,dh] vs cache [B,Hkv,Smax,dh]. ``kpos``
     [B,Smax] holds the global position stored in each slot (-1 = empty);
     slots with kpos > pos or kpos < 0 are masked (covers the linear and
-    the rolling local-window cache). ``pos`` is a scalar or per-row [B]."""
+    the rolling local-window cache). ``pos`` is a scalar or per-row [B].
+    ``k_scale``/``v_scale`` [B,Hkv,Smax] dequantize an int8 cache at the
+    gather (the per-vector scales of :func:`quantize_kv`)."""
     dh = q.shape[-1]
+    if k_scale is not None:
+        k_cache = k_cache.float() * k_scale[..., None]
+        v_cache = v_cache.float() * v_scale[..., None]
     s = _grouped_scores(q, k_cache) / math.sqrt(dh)         # [B,Hkv,G,1,S]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
     qpos = pos[:, None] if pos.ndim else pos
@@ -240,34 +248,57 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 def kv_store_dtype(dtype, kv_dtype: str = ""):
     """Cache storage dtype for a ``ModelConfig.kv_dtype`` tag."""
+    return {"": dtype, "bfloat16": torch.bfloat16,
+            "int8": torch.int8}[kv_dtype]
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(row, head, position) symmetric int8 of K/V [..., S, dh] ->
+    (q int8 same shape, scale fp32 [..., S]) — one scale per cached vector,
+    the granularity the decode gather dequantizes at. The reference's
+    arithmetic step for step (fp32 division, round half to even)."""
+    xf = x.float()
+    scale = compression.int8_scale(xf.abs().amax(dim=-1))
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def kv_cache_shapes(batch: int, n_kv: int, max_seq: int, dh: int, dtype,
+                    kv_dtype: str = "") -> dict[str, tuple]:
+    """``{leaf: (shape, dtype)}`` of one KV cache: k/v in the storage dtype,
+    kpos int32, and for an int8 cache the fp32 ``kscale``/``vscale``."""
+    store = kv_store_dtype(dtype, kv_dtype)
+    out = {"k": ((batch, n_kv, max_seq, dh), store),
+           "v": ((batch, n_kv, max_seq, dh), store),
+           "kpos": ((batch, max_seq), torch.int32)}
     if kv_dtype == "int8":
-        raise NotImplementedError(
-            "int8 KV caches arrive with the port's int8 slice")
-    return {"": dtype, "bfloat16": torch.bfloat16}[kv_dtype]
+        out["kscale"] = ((batch, n_kv, max_seq), torch.float32)
+        out["vscale"] = ((batch, n_kv, max_seq), torch.float32)
+    return out
 
 
 def init_kv_cache(batch: int, n_kv: int, max_seq: int, dh: int, dtype,
                   kv_dtype: str = "", device=None) -> Params:
-    store = kv_store_dtype(dtype, kv_dtype)
-    return {
-        "k": torch.zeros((batch, n_kv, max_seq, dh), dtype=store,
-                         device=device),
-        "v": torch.zeros((batch, n_kv, max_seq, dh), dtype=store,
-                         device=device),
-        "kpos": torch.full((batch, max_seq), -1, dtype=torch.int32,
-                           device=device),
-    }
+    """An empty KV cache: k/v (and scales) zero, kpos -1."""
+    return {name: torch.full(shape, -1 if name == "kpos" else 0, dtype=dt,
+                             device=device)
+            for name, (shape, dt) in kv_cache_shapes(
+                batch, n_kv, max_seq, dh, dtype, kv_dtype).items()}
 
 
 def kv_cache_update(cache: Params, k_new: torch.Tensor, v_new: torch.Tensor,
                     pos: torch.Tensor, window: int = 0) -> Params:
     """Write one step's K/V [B, Hkv, 1, dh] at slot ``pos`` (or ``pos % W``
     rolling). ``pos`` is a scalar (uniform batch) or per-row [B]. The fresh
-    k/v are cast to the cache's storage dtype at commit. Functional: the
-    cache passed in is left as it was (the caller may still hold it)."""
-    if "kscale" in cache:
-        raise NotImplementedError(
-            "int8 KV caches arrive with the port's int8 slice")
+    k/v are cast to the cache's storage dtype at commit; an int8 cache
+    (``kscale``/``vscale`` leaves present) quantizes them per cached vector
+    with :func:`quantize_kv` and writes the scales beside them. Functional:
+    the cache passed in is left as it was (the caller may still hold
+    it)."""
+    quant = "kscale" in cache
+    if quant:
+        k_new, k_sc = quantize_kv(k_new)
+        v_new, v_sc = quantize_kv(v_new)
     b, _, smax, _ = cache["k"].shape
     dev = cache["k"].device
     pos = torch.as_tensor(pos, dtype=torch.int64, device=dev)
@@ -281,7 +312,13 @@ def kv_cache_update(cache: Params, k_new: torch.Tensor, v_new: torch.Tensor,
     k[bidx, :, slot] = k_new[:, :, 0].to(k.dtype)
     v[bidx, :, slot] = v_new[:, :, 0].to(v.dtype)
     kpos[bidx, slot] = pos.to(torch.int32)
-    return {"k": k, "v": v, "kpos": kpos}
+    out = {"k": k, "v": v, "kpos": kpos}
+    if quant:
+        out["kscale"] = cache["kscale"].clone()
+        out["vscale"] = cache["vscale"].clone()
+        out["kscale"][bidx, :, slot] = k_sc[:, :, 0]
+        out["vscale"][bidx, :, slot] = v_sc[:, :, 0]
+    return out
 
 
 # ---------------------------------------------------------------------------

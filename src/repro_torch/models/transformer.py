@@ -110,7 +110,6 @@ def params_from_jax(cfg: ModelConfig, params,
 
 def _cache_shapes(cfg: ModelConfig, batch: int, max_seq: int):
     dh = cfg.resolved_head_dim
-    store = layers.kv_store_dtype(cfg.dtype, cfg.kv_dtype)
     out = []
     for seg in cfg.segments():
         one = {}
@@ -118,16 +117,18 @@ def _cache_shapes(cfg: ModelConfig, batch: int, max_seq: int):
             s = (min(cfg.local_window or max_seq, max_seq)
                  if kind == "local_attn" else max_seq)
             one[f"b{i}"] = {
-                "k": ((seg.reps, batch, cfg.n_kv_heads, s, dh), store),
-                "v": ((seg.reps, batch, cfg.n_kv_heads, s, dh), store),
-                "kpos": ((seg.reps, batch, s), torch.int32)}
+                name: ((seg.reps,) + shape, dt)
+                for name, (shape, dt) in layers.kv_cache_shapes(
+                    batch, cfg.n_kv_heads, s, dh, cfg.dtype,
+                    cfg.kv_dtype).items()}
         out.append(one)
     return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device: torch.device | str | None = None):
-    """Empty KV caches (k/v zero, kpos -1) on ``device`` (None -> card)."""
+    """Empty KV caches (k/v and int8 scales zero, kpos -1) on ``device``
+    (None -> card)."""
     dev = device_lib.resolve(device)
     return [{b: {name: torch.full(shape, -1 if name == "kpos" else 0,
                                   dtype=dt, device=dev)
@@ -143,8 +144,9 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int):
 
 def cache_trim_positions(caches, length: int):
     """Invalidate every cache entry at position >= ``length``: kpos to -1,
-    K/V to zero — the init state of those slots (the bucketed-prefill
-    epilogue; slot == position in every global-attention cache)."""
+    K/V and int8 scales to zero — the init state of those slots (the
+    bucketed-prefill epilogue; slot == position in every global-attention
+    cache)."""
     out = []
     for seg in caches:
         new = {}
@@ -155,6 +157,9 @@ def cache_trim_positions(caches, length: int):
                 "k": torch.where(keep[:, None], c["k"], 0).to(c["k"].dtype),
                 "v": torch.where(keep[:, None], c["v"], 0).to(c["v"].dtype),
                 "kpos": torch.where(keep, c["kpos"], -1).to(torch.int32)}
+            for name in ("kscale", "vscale"):
+                if name in c:           # [reps, B, hkv, smax]: slot is last
+                    new[b][name] = torch.where(keep, c[name], 0.0)
         out.append(new)
     return out
 
@@ -189,7 +194,9 @@ def _attention_sublayer(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
     if mode == "decode":
         new_cache = layers.kv_cache_update(cache, k, v, pos, window)
         attn = layers.attention_decode(q, new_cache["k"], new_cache["v"],
-                                       new_cache["kpos"], pos)
+                                       new_cache["kpos"], pos,
+                                       new_cache.get("kscale"),
+                                       new_cache.get("vscale"))
     else:
         s = x.shape[1]
         if window and s > window:
@@ -213,14 +220,22 @@ def _attention_sublayer(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
                                 device=x.device)
         slots = kept_pos % smax
         store = layers.kv_store_dtype(k.dtype, cfg.kv_dtype)
+        kk, vk = k[:, :, -keep:], v[:, :, -keep:]
+        new_cache = {}
+        if cfg.kv_dtype == "int8":      # empty slots keep a zero scale
+            kk, k_sc = layers.quantize_kv(kk)
+            vk, v_sc = layers.quantize_kv(vk)
+            for name, sc in (("kscale", k_sc), ("vscale", v_sc)):
+                new_cache[name] = torch.zeros_like(cache[name])
+                new_cache[name][:, :, slots] = sc
         ks = torch.zeros_like(cache["k"], dtype=store)
         vs = torch.zeros_like(cache["v"], dtype=store)
-        ks[:, :, slots] = k[:, :, -keep:].to(store)
-        vs[:, :, slots] = v[:, :, -keep:].to(store)
+        ks[:, :, slots] = kk.to(store)
+        vs[:, :, slots] = vk.to(store)
         kpos = torch.full((smax,), -1, dtype=torch.int32, device=x.device)
         kpos[slots] = kept_pos.to(torch.int32)
-        new_cache = {"k": ks, "v": vs,
-                     "kpos": kpos[None].expand(x.shape[0], smax).clone()}
+        new_cache.update(k=ks, v=vs,
+                         kpos=kpos[None].expand(x.shape[0], smax).clone())
     out = layers.dense(p["attn"]["wo"], layers.merge_heads(attn))
     return x + out, new_cache
 

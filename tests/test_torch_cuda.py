@@ -8,7 +8,9 @@ CUDA kernel has no CPU mode. On a machine with an H100 run them with
 This file imports no JAX (the card's machine has none); the CPU parity of
 the plain versions against the JAX package is tests/test_torch_kernels.py.
 Tolerances: 1e-4 for a kernel's forward values (fp32 sums in another order
-than cuBLAS), 2e-4 for moments (the reference's fused-vs-per-op bar); the
+than cuBLAS), 2e-4 for moments (the reference's fused-vs-per-op bar) and
+for the int8 bodies (the reference's int8 bar: the dequantized weights are
+exact, so only the order of the sums differs); the
 decode kernel's bf16 k/v outputs within one bf16 ulp of the plain version's
 plus 1e-5 of the tensor's largest value (fp32 values that differ by sums
 taken in another order, each rounded to bf16).
@@ -24,6 +26,7 @@ from repro_torch.configs import registry
 from repro_torch.core import masks as masks_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.ivim import model as ivim_model
+from repro_torch.kernels import _build
 from repro_torch.kernels.fused_decode import ops as dops
 from repro_torch.models import layers, model as lm_model, transformer
 from repro_torch.kernels.fused_plan import ops as fops
@@ -34,6 +37,7 @@ from repro_torch.serving import engine, server
 
 TOL_FWD = 1e-4
 TOL_MOMENTS = 2e-4
+TOL_INT8 = 2e-4
 
 
 @pytest.fixture
@@ -325,3 +329,197 @@ def test_fused_decode_refuses_bad_operands(cuda):
                           sin)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         dops.fused_decode(spec, x.double(), flat, fc, pos, cos, sin)
+
+
+# ---------------------------------------------------------------------------
+# the int8 bodies (Precision("int8"))
+# ---------------------------------------------------------------------------
+
+
+def test_int8_quantizers_on_card_match_cpu(cuda):
+    """The serving quantizers give the same int8 values and scales on the
+    card as on the CPU (and so as the reference's, tests/
+    test_torch_quantized.py): the scale is a true division there too."""
+    gen = torch.Generator().manual_seed(6)
+    w = _rand(gen, 32, 104, 52) * torch.rand(32, 1, 52, generator=gen) * 9
+    kv = _rand(gen, 32, 2, 160, 128, scale=3.0)
+    for fn, x in ((plan_lib._quantize_weight, w), (layers.quantize_kv, kv)):
+        for got, want in zip(fn(x.to(cuda)), fn(x)):
+            assert got.dtype == want.dtype
+            assert torch.equal(got.cpu(), want), fn.__name__
+
+
+def _int8_pair(gen, b, d, k, d2, n, device):
+    """masked_ffn's int8 operands: the serving quantizer's int8 weights and
+    bf16 scales, bf16 biases."""
+    x = torch.rand((b, d), generator=gen)
+    w1, w2 = _rand(gen, n, d, k), _rand(gen, n, k, d2)
+    q1, s1 = plan_lib._quantize_weight(w1)
+    q2, s2 = plan_lib._quantize_weight(w2)
+    b1 = plan_lib._low_bias(_rand(gen, n, k, scale=0.1))
+    b2 = plan_lib._low_bias(_rand(gen, d2, scale=0.1))
+    return tuple(t.to(device) for t in (x, q1, b1, q2, b2, s1, s2))
+
+
+@pytest.mark.parametrize("shape", [
+    (4097, 11, 11, 11, 1),        # ragged batch, clinical width, one mask
+    (4096, 104, 52, 52, 32),      # the dense IVIM pair
+    (45, 150, 70, 70, 2),         # D > 128 and K, D2 > 64: the tiled walks
+    (1, 3, 1, 2, 1)])
+def test_masked_ffn_int8_kernel_matches_plain(cuda, shape):
+    args = _int8_pair(torch.Generator().manual_seed(0), *shape, cuda)
+    before = (mops.masked_ffn.launches, mops.masked_ffn.int8_launches)
+    got = mops.masked_ffn(*args)
+    assert (mops.masked_ffn.launches, mops.masked_ffn.int8_launches) == \
+        (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, mref.masked_ffn_ref(*args),
+                               rtol=TOL_INT8, atol=TOL_INT8)
+
+
+def _int8_spec(spec):
+    return dataclasses.replace(spec, steps=tuple(
+        dataclasses.replace(st, w_dtype="int8") if st.kind == "dense"
+        else st for st in spec.steps))
+
+
+def _int8_params(spec, gen, device):
+    """An int8 spec's operands: fp32 draws through the serving quantizer."""
+    out = []
+    for i, slot in fref.param_slots(spec):
+        st = spec.steps[i]
+        lead = (spec.n_rows,) if st.per_sample else ()
+        if slot == "ws":
+            continue
+        shape = {"w": lead + (st.d_in, st.d_out), "b": (st.d_out,),
+                 "bp": (spec.n_rows, st.d_out)}[slot]
+        if slot == "w":
+            out += plan_lib._quantize_weight(_rand(gen, *shape))
+        else:
+            out.append(plan_lib._low_bias(_rand(gen, *shape)))
+    return tuple(t.to(device) for t in out)
+
+
+INT8_SPECS = dict(SPECS, ivim11_n1=_ivim(11, 1, 6))
+
+
+@pytest.mark.parametrize("batch", (4097, 1))
+@pytest.mark.parametrize("name", sorted(INT8_SPECS))
+def test_fused_int8_kernels_match_plain(cuda, name, batch):
+    spec = _int8_spec(INT8_SPECS[name])
+    gen = torch.Generator().manual_seed(1)
+    params = _int8_params(spec, gen, cuda)
+    x = torch.rand((batch, spec.d_in), generator=gen).to(cuda)
+    fp = fops.pack(spec, params)
+    before = (fops.fused_samples.int8_launches,
+              fops.fused_moments.int8_launches)
+    torch.testing.assert_close(fops.fused_samples(fp, x),
+                               fref.fused_plan_ref(spec, x, params),
+                               rtol=TOL_INT8, atol=TOL_INT8)
+    for got, want in zip(fops.fused_moments(fp, x),
+                         fref.fused_moments_ref(spec, x, params)):
+        torch.testing.assert_close(got, want, rtol=TOL_INT8, atol=TOL_INT8)
+    assert (fops.fused_samples.int8_launches,
+            fops.fused_moments.int8_launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+class _Recorder:
+    """A C entry of a kernel library that records its arguments, then
+    calls the real entry."""
+
+    def __init__(self, fn, calls):
+        object.__setattr__(self, "_fn", fn)
+        object.__setattr__(self, "_calls", calls)
+
+    def __setattr__(self, name, value):        # argtypes / restype
+        setattr(self._fn, name, value)
+
+    def __call__(self, *args):
+        self._calls.append(args)
+        return self._fn(*args)
+
+
+def test_int8_launches_receive_int8_operands(cuda, monkeypatch):
+    """The int8 entries get the int8 weights' and bf16 scales' own storage:
+    no wrapper widens an int8 operand (the fp32 buffer of a fused int8
+    chain holds its biases only)."""
+    calls: list = []
+    real_load = _build.load
+
+    class Lib:
+        def __init__(self, name):
+            self._lib = real_load(name)
+
+        def __getattr__(self, entry):
+            return _Recorder(getattr(self._lib, entry), calls)
+
+    monkeypatch.setattr(_build, "load", Lib)
+    x, q1, b1, q2, b2, s1, s2 = _int8_pair(torch.Generator().manual_seed(2),
+                                           64, 104, 52, 52, 4, cuda)
+    mops.masked_ffn(x, q1, b1, q2, b2, s1, s2)
+    ptrs = calls.pop()
+    assert ptrs[1:7] == tuple(t.data_ptr() for t in (q1, s1, b1, q2, s2, b2))
+    assert (q1.dtype, s1.dtype, b1.dtype) == \
+        (torch.int8, torch.bfloat16, torch.bfloat16)
+    spec = _int8_spec(SPECS["ivim104_n8"])
+    params = _int8_params(spec, torch.Generator().manual_seed(3), cuda)
+    fp = fops.pack(spec, params)
+    xf = torch.rand((64, spec.d_in), device=cuda)
+    fops.fused_moments(fp, xf)
+    fops.fused_samples(fp, xf)
+    slots = fref.param_slots(spec)
+    for args in calls:
+        assert args[3:6] == (fp.flat.data_ptr(), fp.qflat.data_ptr(),
+                             fp.sflat.data_ptr())
+    assert fp.qflat.dtype == torch.int8 and fp.sflat.dtype == torch.bfloat16
+    assert fp.qflat.numel() == sum(p.numel() for (_, k), p in
+                                   zip(slots, params) if k == "w")
+    assert fp.flat.numel() == sum(p.numel() for (_, k), p in
+                                  zip(slots, params) if k in ("b", "bp"))
+
+
+def test_int8_launch_errors_raise(cuda):
+    """A launch the kernel refuses (a sample axis past the grid's 65,535
+    limit) raises, and is not counted."""
+    args = _int8_pair(torch.Generator().manual_seed(4), 4, 2, 1, 1, 65536,
+                      cuda)
+    before = (mops.masked_ffn.launches, mops.masked_ffn.int8_launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mops.masked_ffn(*args)
+    assert (mops.masked_ffn.launches, mops.masked_ffn.int8_launches) == before
+    spec = _int8_spec(fref.FusedSpec(
+        (S("dense", "relu", per_sample=True, d_in=2, d_out=1),), 65536,
+        65536, 1, 2, 1))
+    fp = fops.pack(spec, _int8_params(spec, torch.Generator().manual_seed(5),
+                                      cuda))
+    before = fops.fused_samples.int8_launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fops.fused_samples(fp, torch.rand((4, 2), device=cuda))
+    assert fops.fused_samples.int8_launches == before
+    with pytest.raises(TypeError, match="bfloat16"):
+        mops.masked_ffn(args[0], args[1], args[2].float(), *args[3:])
+
+
+def test_int8_volume_on_card(cuda):
+    """The int8 main path at a small size: fused (one int8 moments launch
+    per chunk) and per-op (one int8 masked_ffn launch per chunk) agree
+    within 2e-4, and stay within the reference's 2e-2 of fp32."""
+    cfg = ivim_model.IvimConfig(n_masks=4)
+    model = ivim_model.init(cfg, torch.Generator().manual_seed(4),
+                            device=cuda)
+    plan = ivim_model.pack_for_serving(model)
+    q = plan.with_precision(plan_lib.Precision("int8"))
+    volume = torch.rand((5, 7, 3, cfg.width), device=cuda) + 0.2
+    chunks = int(np.ceil(105 / 16))
+    outs = {}
+    for fused, counter in ((True, fops.fused_moments),
+                           (False, mops.masked_ffn)):
+        before = counter.int8_launches
+        outs[fused] = engine.predict_volume(q, volume, chunk=16, fused=fused,
+                                            device=cuda)
+        assert counter.int8_launches == before + chunks
+    for g, w in zip(outs[True], outs[False]):
+        torch.testing.assert_close(g, w, rtol=TOL_INT8, atol=TOL_INT8)
+    want = engine.predict_volume(plan, volume, chunk=16, device=cuda)
+    for g, w in zip(outs[True], want):
+        torch.testing.assert_close(g, w, rtol=0, atol=2e-2)

@@ -28,13 +28,14 @@ def test_port_imports_no_jax_and_no_reference():
         "bad = [k for k in sys.modules if k in ('jax', 'repro') or "
         "k.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 33, names\n"
+        "assert 'repro_torch.distributed.compression' in names, names\n"
+        "assert len(names) >= 35, names\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(SRC),
                          capture_output=True, text=True, timeout=120,
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 33
+    assert int(out.stdout.strip()) >= 35
 
 
 def _tiny_plan():
@@ -81,8 +82,12 @@ def test_cpu_only_when_asked():
 
 
 def test_int8_precision_raises():
-    with pytest.raises(ValueError, match="int8 slice"):
-        plan_lib.Precision("int8")
+    """Only an unknown precision raises: int8 serves in the port now (its
+    parity with the reference is tests/test_torch_quantized.py)."""
     with pytest.raises(ValueError, match="unknown weight precision"):
         plan_lib.Precision("bf16")
     assert plan_lib.Precision().weights == "fp32"
+    plan, x = _tiny_plan()
+    q = plan.with_precision(plan_lib.Precision("int8"))
+    mean, std = engine.predict_volume(q, x[None], chunk=2, device="cpu")
+    assert mean.shape == (1, 5, 4) and bool(torch.isfinite(std).all())

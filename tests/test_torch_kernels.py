@@ -162,8 +162,18 @@ def test_fused_descriptor_layout():
     assert fp.flat.numel() == sum(p.size for p in params)
     with pytest.raises(ValueError, match="spec wants"):
         t_fops.pack(tspec, tuple(torch.zeros(1) for _ in params))
-    with pytest.raises(ValueError, match="int8 slice"):
-        t_fref.FusedSpec((t_fref.FusedStep("dense", w_dtype="int8", d_in=1,
+    # an int8 step: its weight in the int8 buffer, its scale in the bf16
+    # one, 15 descriptor fields a step (the last two: int8 flag, scale
+    # offset); an unknown weight dtype raises
+    q = t_fref.FusedSpec((t_fref.FusedStep("dense", w_dtype="int8", d_in=3,
+                                           d_out=2, shared_bias=True),),
+                         1, 1, 1, 3, 2)
+    assert t_fref.param_slots(q) == ((0, "w"), (0, "ws"), (0, "b"))
+    qlay = t_fops._layout(q)
+    assert qlay.shapes == ((3, 2), (1, 2), (2,))
+    assert len(qlay.desc) == 9 + 15 and list(qlay.desc[-2:]) == [1, 0]
+    with pytest.raises(ValueError, match="unknown weight dtype"):
+        t_fref.FusedSpec((t_fref.FusedStep("dense", w_dtype="fp8", d_in=1,
                                            d_out=1),), 1, 1, 1, 1, 1)
     with pytest.raises(t_fref.FusedPlanUnsupported):
         t_fref.FusedSpec((t_fref.FusedStep("act", "relu"),), 1, 1, 1, 1, 1)
