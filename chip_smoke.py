@@ -21,6 +21,12 @@ and read just after:
   bf16 scales, dequantized in the kernels), fused and per-op; and the same
   LM traffic with an int8 KV cache (``kv_dtype="int8"``), which has no
   fused lowering and runs the per-op decode step.
+* Hybrid LM serving: ``recurrentgemma-2b`` at its published widths and full
+  depth (26 layers = (rec, rec, local_attn) x 8 + (rec, rec), bf16, random
+  weights) with 4 masks; ``serve_uncertain`` serves the same traffic (8
+  requests x 128-token prompts, 32 new tokens). It has no fused decode
+  lowering: exact prefill (every rec block through ``rglru_scan``, every
+  local-attention block through ``flash_attention``), per-op decode.
 
 Phases, each on its own line; any failure raises and exits nonzero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -45,8 +51,19 @@ Phases, each on its own line; any failure raises and exits nonzero:
      then bf16 with the int8 KV cache: ``quantize_kv`` bit-equal to the
      CPU, every cached vector within half an int8 step of its value, no
      fused_decode launch, tokens compared with the bf16-KV per-op leg
-     (reported, not gated);
-  6. one JSON line with every kernel's numbers, then the device line.
+     (reported, not gated). Each qwen2-1.5b prefill runs
+     ``flash_attention`` once a layer (28 launches, asserted);
+  6. the hybrid kernels vs plain on the card: ``rglru_scan`` at the served,
+     a long and a ragged shape, ``flash_attention`` at the recurrentgemma-2b
+     and qwen2-1.5b prefill shapes (bf16; fp32; full attention; a ragged
+     shape), with ``scaled_dot_product_attention`` timed beside it;
+  7. the hybrid main path: ``serve_uncertain`` on recurrentgemma-2b with the
+     launches of the call asserted (18 rglru_scan, 8 flash_attention, no
+     fused_decode), ms a decode step, prefill ms, state and cache bytes;
+     then, in fp32 at full width and 5 layers, the log-probs of
+     ``prefill(prompt[:s+1])`` (both kernels) against ``prefill(prompt[:s])``
+     and one ``decode_step`` of token s (neither kernel);
+  8. one JSON line with every kernel's numbers, then the device line.
 
 Weights are random from ``torch.Generator`` seeds (IVIM: seed 0 with
 non-trivial BN running statistics from seed 1; LM: seed 0); the data is
@@ -62,8 +79,10 @@ import sys
 import time
 from pathlib import Path
 
-#: NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate.
+#: NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense bf16 on
+#: the tensor cores, HBM3 rate.
 FP32_PEAK = 67e12
+BF16_PEAK = 989e12
 HBM_BW = 3.35e12
 CHUNK = 4096
 VOLUME = (128, 128, 24)
@@ -90,6 +109,26 @@ TOL_KV_SCALE = 1e-5
 # fp32 serve_uncertain, fused vs per-op, after 32 greedy steps: the
 # reference's posterior bar (rtol 1e-4 at smoke size) widened for depth.
 TOL_LM_UNC = 1e-3
+LM_FLASH_LAUNCHES = 28          # one a layer of qwen2-1.5b's prefill
+HY_ARCH, HY_PATH_LAYERS = "recurrentgemma-2b", 5
+# rglru_scan vs its plain version: fp32, a sequential fmaf carry against the
+# reference's odd/even tree of products and sums; with |a| < 1 the rounding
+# does not grow with S
+TOL_SCAN = 1e-5
+# flash_attention vs its plain version in fp32: sums over dh and the keys
+# in another order, the online softmax's rescaling
+TOL_FLASH_F32 = 1e-5
+# ... in bf16: one bf16 ulp of the plain value (both round the fp32 result
+# once) plus 2^-8 max|v|: each p is rounded to bf16 (2^-9 relative) before
+# the normalisation in the kernel and after it in the plain version, so the
+# two fp32 sums differ by at most 2^-8 sum_j p_j |v_j| <= 2^-8 max|v|
+FLASH_BF16_V_SHARE = 2.0 ** -8
+# fp32 hybrid at full width, 5 layers: prefill(prompt[:s+1]) against
+# prefill(prompt[:s]) + decode_step(token s), last-position log-probs. Sums
+# of 2,560- to 7,680-long products in another order (cuBLAS picks kernels
+# by shape), a sequential scan against one recurrence step, online against
+# full softmax: expected ~1e-5; a state off by one step moves them by O(0.1)
+TOL_HY_PATH = 1e-3
 
 
 def _phase(phase: str, /, **fields) -> None:
@@ -118,8 +157,9 @@ def _within_bf16_ulp(got, want) -> float:
 
 def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
     """Phases 4 and 5: the LM decode kernel against its plain version at
-    full width, then ``serve_uncertain`` fused and per-op. Returns the
-    fused_decode record of the kernels line."""
+    full width, then ``serve_uncertain`` fused and per-op (``counters``:
+    masked_ffn, samples, moments, fused_decode, flash_attention,
+    rglru_scan). Returns the fused_decode record of the kernels line."""
     import dataclasses
 
     import torch
@@ -277,11 +317,13 @@ def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         counts = tuple(ctr.launches for ctr in counters)
-        expect = (0, 0, 0, fused_steps if fused is None else 0)
+        expect = (0, 0, 0, fused_steps if fused is None else 0,
+                  LM_FLASH_LAUNCHES, 0)
         if counts != expect:
             raise AssertionError(f"LM {c.dtype} fused={fused} launches "
-                                 f"(masked_ffn, samples, moments, decode) = "
-                                 f"{counts}, expected {expect}")
+                                 f"(masked_ffn, samples, moments, decode, "
+                                 f"flash, scan) = {counts}, expected "
+                                 f"{expect}")
         if fused is None and fused_steps and not fns.fused_live():
             raise AssertionError("fused leg fell back to the per-op path")
         gen, unc, _ = out
@@ -376,6 +418,280 @@ def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
         "fused_step_ms": main["fused_step_ms"]}
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
+    """Phases 6 and 7: ``rglru_scan`` and ``flash_attention`` against their
+    plain versions, then recurrentgemma-2b served at full width and depth,
+    and the fp32 prefill-vs-step agreement. ``counters`` as for
+    :func:`lm_phases`. Returns the two kernels' records of the kernels
+    line."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rglru_scan import ops as sc_ops
+    from repro_torch.kernels.rglru_scan import ref as sc_ref
+    from repro_torch.models import model as lm_model, transformer
+    from repro_torch.serving import engine, server
+
+    gen = torch.Generator(dev).manual_seed(4)
+
+    def reset():
+        for ctr in counters:
+            ctr.launches = 0
+
+    def launches():
+        return tuple(ctr.launches for ctr in counters)
+
+    # ---- phase 6: the two kernels against their plain versions ------------
+    scan = {}
+    for name, shape in (("served", (32, LM_PROMPT, 2560)),
+                        ("long", (4, 4096, 2560)), ("ragged", (3, 37, 11))):
+        a = 0.85 + 0.149 * torch.rand(shape, generator=gen, device=dev)
+        b = torch.randn(shape, generator=gen, device=dev) \
+            * torch.sqrt(1 - a * a)
+        got, want = sc_ops.rglru_scan(a, b), sc_ref.rglru_scan_ref(a, b)
+        torch.testing.assert_close(got, want, rtol=TOL_SCAN, atol=TOL_SCAN)
+        rec = {"shape": name, "dims": list(shape),
+               "max_abs_err": float((got - want).abs().max()),
+               "ms": time_ms(lambda: sc_ops.rglru_scan(a, b)),
+               "plain_ms": time_ms(lambda: sc_ref.rglru_scan_ref(a, b), 5)}
+        # one FMA and 12 bytes (a and b read, h written) an element
+        rec["bound_ms"], rec["bound_by"] = bound(2 * a.numel(),
+                                                 3 * 4 * a.numel())
+        _phase("hy_kernel", name="rglru_scan", **rec)
+        scan[name] = rec
+        del a, b, got, want
+
+    flash = {}
+    for name, b, h, hkv, s, dh, dt, causal in (
+            ("rg_prefill", 32, 10, 1, LM_PROMPT, 256, torch.bfloat16, True),
+            ("rg_long", 4, 10, 1, 2048, 256, torch.bfloat16, True),
+            ("qwen_prefill", 32, 12, 2, LM_PROMPT, 128, torch.bfloat16, True),
+            ("qwen_fp32", 32, 12, 2, LM_PROMPT, 128, torch.float32, True),
+            ("qwen_full", 32, 12, 2, LM_PROMPT, 128, torch.bfloat16, False),
+            ("ragged", 3, 4, 2, 129, 80, torch.bfloat16, True)):
+        q, k, v = (torch.randn((b, n, s, dh), generator=gen, device=dev)
+                   .to(dt) for n in (h, hkv, hkv))
+        got = fa_ops.flash_attention(q, k, v, causal=causal)
+        want = fa_ref.flash_attention_ref(q, k, v, causal=causal)
+        err = (got.float() - want.float()).abs()
+        extra = {}
+        if dt == torch.bfloat16:
+            ulp = (want.float().abs().clamp_min(1e-30).log2().floor()
+                   - 7).exp2()
+            limit = ulp + FLASH_BF16_V_SHARE * v.float().abs().max()
+            extra["beyond_1ulp"] = int((err > ulp).sum())
+            # both against the same attention in fp32 (p never rounded)
+            exact = fa_ref.flash_attention_ref(q.float(), k.float(),
+                                               v.float(), causal=causal)
+            extra["kernel_err_vs_fp32"] = float((got.float() - exact)
+                                                .abs().max())
+            extra["plain_err_vs_fp32"] = float((want.float() - exact)
+                                               .abs().max())
+            del exact
+        else:
+            limit = TOL_FLASH_F32 * (1 + want.abs())
+        if got.dtype != dt or not bool((err <= limit).all()):
+            raise AssertionError(f"flash_attention {name}: max abs error "
+                                 f"{float(err.max())} beyond its limit")
+
+        def lib(q=q, k=k, v=v, causal=causal):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=True)
+
+        pairs = s * (s + 1) // 2 if causal else s * s
+        rec = {"shape": name, "dims": [b, h, hkv, s, dh], "dtype": dt,
+               "causal": causal, "max_abs_err": float(err.max()), **extra,
+               "library_max_abs_err": float((lib().float() - want.float())
+                                            .abs().max()),
+               "ms": time_ms(lambda: fa_ops.flash_attention(q, k, v,
+                                                            causal=causal)),
+               "plain_ms": time_ms(lambda: fa_ref.flash_attention_ref(
+                   q, k, v, causal=causal), 5),
+               "library_ms": time_ms(lib)}
+        rec["bound_ms"], rec["bound_by"] = bound(
+            4 * b * h * pairs * dh, nbytes(q, k, v, got),
+            BF16_PEAK if dt == torch.bfloat16 else FP32_PEAK)
+        _phase("hy_kernel", name="flash_attention", **rec)
+        flash[name] = rec
+        del q, k, v, got, want, err, limit
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: the hybrid main path -------------------------------------
+    cfg = registry.get_config(HY_ARCH, mask_samples=LM_MASKS)
+    kinds = [k for seg in cfg.segments() for _ in range(seg.reps)
+             for k in seg.pattern]
+    n_rec, n_local = kinds.count("rec"), kinds.count("local_attn")
+    if (len(kinds), n_rec, n_local) != (26, 18, 8):
+        raise AssertionError(f"{HY_ARCH} layers {kinds}")
+    model = lm_model.build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    _phase("hy_model", arch=HY_ARCH,
+           params=sum(t.numel() for t in _leaves(params)),
+           param_gbytes=nbytes(*_leaves(params)) / 1e9, layers=len(kinds),
+           rec=n_rec, local_attn=n_local, d_model=cfg.d_model,
+           heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+           head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff,
+           lru_width=cfg.lru_width, window=cfg.local_window,
+           vocab=cfg.vocab_size, tied=cfg.tie_embeddings, masks=LM_MASKS,
+           dtype=cfg.dtype, init_s=f"{time.perf_counter() - t0:.1f}")
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=torch.Generator(dev).manual_seed(1),
+                            device=dev, dtype=torch.int32)
+    max_seq = LM_PROMPT + LM_NEW
+    fns = server.step_fns(model, device=dev)
+    if fns.fused_spec is not None or fns.prefill_spec is not None:
+        raise AssertionError(f"{HY_ARCH} took a fused lowering")
+    pool = prompts.repeat(LM_MASKS, 1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mean, _, caches = fns.prefill(params, pool, max_seq=max_seq)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    state_bytes = nbytes(*(t for seg in caches for c in seg.values()
+                           if "h" in c for t in c.values()))
+    kv_bytes = nbytes(*(t for seg in caches for c in seg.values()
+                        if "kpos" in c for t in c.values()))
+    tok = mean.argmax(-1).to(torch.int32).repeat(LM_MASKS)[:, None]
+    step_ms = time_ms(lambda: fns.decode(params, caches, tok, LM_PROMPT), 5)
+    prof = torch.profiler
+    with prof.profile(activities=[prof.ProfilerActivity.CPU,
+                                  prof.ProfilerActivity.CUDA]) as trace:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            fns.decode(params, caches, tok, LM_PROMPT)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t) / 3
+
+    # the kernels' own events (their device time), summed by kernel name
+    per_kernel: dict[str, list] = {}
+    for e in trace.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            acc = per_kernel.setdefault(e.name, [0.0, 0])
+            acc[0] += e.time_range.elapsed_us() / 3
+            acc[1] += 1
+    dev_ms = sum(us for us, _ in per_kernel.values()) / 1e3
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    _phase("hy_decode_profile", wall_ms_per_step=f"{wall_ms:.3f}",
+           device_ms_per_step=f"{dev_ms:.3f}" if dev_ms else "not measured",
+           device_busy_share=f"{dev_ms / wall_ms:.3f}" if dev_ms
+           else "not measured",
+           kernels_per_step=sum(n for _, n in per_kernel.values()) // 3,
+           top_kernels_us_per_step=[(name[:50], round(us, 1), n // 3)
+                                    for name, (us, n) in top])
+    del caches, mean, tok, trace, per_kernel, top
+    reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    gen_toks, unc, _ = engine.serve_uncertain(
+        model, params, prompts, engine.ServeConfig(max_new_tokens=LM_NEW),
+        device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    counts = launches()
+    expect = (0, 0, 0, 0, n_local, n_rec)
+    if counts != expect:
+        raise AssertionError(f"{HY_ARCH} launches (masked_ffn, samples, "
+                             f"moments, decode, flash, scan) = {counts}, "
+                             f"expected {expect}")
+    if gen_toks.shape != (LM_BATCH, LM_PROMPT + LM_NEW) \
+            or not bool(torch.isfinite(unc).all()) \
+            or not bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{HY_ARCH} output {tuple(gen_toks.shape)}, "
+                             f"finite {bool(torch.isfinite(unc).all())}")
+    loop_ms = 1e3 * (secs - prefill_s) / LM_NEW
+    _phase("hy_main_path", arch=HY_ARCH, dtype=cfg.dtype, leg="per_op",
+           seconds=f"{secs:.4f}", prefill_ms=f"{1e3 * prefill_s:.3f}",
+           decode_ms_per_step=f"{loop_ms:.3f}",
+           decode_step_ms_events=f"{step_ms:.3f}",
+           tokens_per_s=f"{LM_BATCH * LM_NEW / secs:.1f}",
+           decode_tokens_per_s=f"{1e3 * LM_BATCH / loop_ms:.1f}",
+           rec_state_mbytes=state_bytes / 1e6, kv_cache_mbytes=kv_bytes / 1e6,
+           rel_unc_mean=float(unc.mean()), launches=counts)
+    del params, gen_toks, unc
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: the fp32 prefill-vs-step invariant at full width --------
+    cfg5 = dataclasses.replace(cfg, n_layers=HY_PATH_LAYERS,
+                               dtype=torch.float32)
+    p5 = transformer.init(cfg5, torch.Generator(dev).manual_seed(0),
+                          device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (LM_MASKS, LM_PROMPT + 1),
+                         generator=torch.Generator(dev).manual_seed(5),
+                         device=dev, dtype=torch.int32)
+    reset()
+    full, _ = transformer.prefill(cfg5, p5, {"tokens": toks},
+                                  max_seq=LM_PROMPT + 1)
+    torch.cuda.synchronize()
+    full_counts = launches()
+    _, caches = transformer.prefill(cfg5, p5, {"tokens": toks[:, :-1]},
+                                    max_seq=LM_PROMPT + 1)
+    reset()
+    step, _ = transformer.decode_step(cfg5, p5, caches, toks[:, -1:],
+                                      LM_PROMPT)
+    torch.cuda.synchronize()
+    step_counts = launches()
+    if full_counts != (0, 0, 0, 0, 1, 4) or step_counts != (0,) * 6:
+        raise AssertionError(f"path agreement launches: prefill "
+                             f"{full_counts}, step {step_counts}")
+    la = torch.log_softmax(full.float(), -1)
+    lb = torch.log_softmax(step.float(), -1)
+    path_err = float((la - lb).abs().max())
+    if not path_err <= TOL_HY_PATH:
+        raise AssertionError(f"prefill vs prefill+step log-probs differ by "
+                             f"{path_err} > {TOL_HY_PATH}")
+    _phase("hy_path_agreement", layers=HY_PATH_LAYERS, dtype=cfg5.dtype,
+           rows=LM_MASKS, s=LM_PROMPT, max_abs_err_logp=path_err,
+           tol=TOL_HY_PATH, argmax_equal=bool(torch.equal(
+               la.argmax(-1), lb.argmax(-1))),
+           prefill_launches=full_counts, step_launches=step_counts)
+    del p5, caches, full, step
+    torch.cuda.empty_cache()
+
+    main_s, main_f = scan["served"], flash["rg_prefill"]
+    return [
+        {"name": "rglru_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan/kernel.py:53"
+                     " (pallas_call :66)",
+         "launches": counts[5],
+         "max_abs_err": max(r["max_abs_err"] for r in scan.values()),
+         "ms": main_s["ms"], "kernel_ms": main_s["ms"],
+         "plain_ms": main_s["plain_ms"], "bound_ms": main_s["bound_ms"],
+         "bound_by": main_s["bound_by"], "library_ms": None,
+         "long_ms": scan["long"]["ms"],
+         "long_bound_ms": scan["long"]["bound_ms"],
+         "ragged_ms": scan["ragged"]["ms"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:88"
+                     " (pallas_call :107)",
+         "launches": counts[4],
+         "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
+         "ms": main_f["ms"], "kernel_ms": main_f["ms"],
+         "plain_ms": main_f["plain_ms"], "bound_ms": main_f["bound_ms"],
+         "bound_by": main_f["bound_by"], "library_ms": main_f["library_ms"],
+         **{f"{n}_{k}": r[k] for n, r in flash.items() if n != "rg_prefill"
+            for k in ("ms", "library_ms", "bound_ms")}}]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -432,8 +748,9 @@ def main() -> int:
     def nbytes(*tensors) -> int:
         return sum(t.numel() * t.element_size() for t in tensors)
 
-    def bound(flops: int, moved: int) -> tuple[float, str]:
-        t_ops, t_bytes = flops / FP32_PEAK, moved / HBM_BW
+    def bound(flops: int, moved: int, peak: float = FP32_PEAK
+              ) -> tuple[float, str]:
+        t_ops, t_bytes = flops / peak, moved / HBM_BW
         return (1e3 * max(t_ops, t_bytes),
                 "operations" if t_ops >= t_bytes else "bytes")
 
@@ -682,11 +999,18 @@ def main() -> int:
     q_launches["packed_apply"] = counts
 
     # ---- phases 4 and 5: the LM kernel and the LM main path ---------------
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.fused_decode import ops as fd_ops
-    decode_rec = lm_phases(dev, time_ms, bound, nbytes,
-                           counters + (fd_ops.fused_decode,))
+    from repro_torch.kernels.rglru_scan import ops as sc_ops
+    lm_counters = counters + (fd_ops.fused_decode, fa_ops.flash_attention,
+                              sc_ops.rglru_scan)
+    decode_rec = lm_phases(dev, time_ms, bound, nbytes, lm_counters)
+    torch.cuda.empty_cache()
 
-    # ---- phase 6: the kernels line, then the device line ------------------
+    # ---- phases 6 and 7: the hybrid kernels and the hybrid main path ------
+    hybrid_recs = hybrid_phases(dev, time_ms, bound, nbytes, lm_counters)
+
+    # ---- phase 8: the kernels line, then the device line ------------------
     main_launches = {"masked_ffn": launches["per_op"][0],
                      "fused_plan_samples": samples_launches,
                      "fused_plan_moments": launches["fused"][2],
@@ -707,6 +1031,7 @@ def main() -> int:
             "ragged_ms": next(r["ms"] for r in recs
                               if r["shape"] == "ragged")})
     line.append(decode_rec)
+    line.extend(hybrid_recs)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,7 +48,9 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    """The model of ``cfg``; raises ``NotImplementedError`` for the block
-    kinds and families later slices of the port bring."""
+    """The model of ``cfg`` (dense and local-attention stacks, and the
+    hybrid RecurrentGemma family); raises ``NotImplementedError`` for what
+    is not ported yet: MoE and xLSTM blocks, M-RoPE and encoder-only
+    models."""
     transformer.check_supported(cfg)
     return Model(cfg)

@@ -1,13 +1,18 @@
-"""The dense transformer stack of the serving path (the port's twin of
-``repro.models.transformer``, attention blocks only).
+"""The transformer stack of the serving path (the port's twin of
+``repro.models.transformer``): attention blocks and RecurrentGemma's
+recurrent (``rec``) blocks.
 
 Parameters keep the reference's layout: ``params["segments"][si]["b{bi}"]``
 with every leaf stacked ``[reps, ...]`` over the segment's repeats, plus
-``embed`` and ``final_norm``; caches are ``[reps, batch, ...]`` per block.
+``embed`` and ``final_norm``; caches are ``[reps, batch, ...]`` per block
+(k/v/kpos for attention, the fp32 ``h`` and the conv window for ``rec``).
 The stack runs as a Python loop over layers (serving needs no scan and no
-rematerialisation). Block kinds other than attn/local_attn (MoE, RG-LRU,
-xLSTM), M-RoPE and encoder-only models arrive with slice 4 of the port and
-raise ``NotImplementedError`` at init.
+rematerialisation). MoE and xLSTM blocks, M-RoPE and encoder-only models
+are not ported yet and raise ``NotImplementedError`` at init.
+
+The causal prefill attention runs the ``flash_attention`` kernel whenever
+the window does not cut the prompt; each ``rec`` block's prefill runs the
+``rglru_scan`` kernel (``models/rglru.py``).
 
 Entry points:
   prefill(params, {tokens})               — prompt -> last logits + caches
@@ -28,9 +33,13 @@ from repro_torch import device as device_lib
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import masksembles
 from repro_torch.core import plan as plan_lib
-from repro_torch.models import layers
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import layers, rglru
 
 Params = dict[str, Any]
+
+#: Block kinds the port builds.
+BLOCK_KINDS = frozenset({"attn", "local_attn", "rec"})
 
 __all__ = ["check_supported", "init", "params_from_jax", "init_cache",
            "cache_specs", "cache_trim_positions", "pack_ffn_params",
@@ -40,12 +49,12 @@ __all__ = ["check_supported", "init", "params_from_jax", "init_cache",
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not build yet."""
     kinds = {k for seg in cfg.segments() for k in seg.pattern}
-    if not kinds <= {"attn", "local_attn"} or cfg.m_rope_sections \
-            or not cfg.causal:
+    if not kinds <= BLOCK_KINDS or cfg.m_rope_sections or not cfg.causal:
         raise NotImplementedError(
             f"{cfg.arch_id}: block kinds {sorted(kinds)}, M-RoPE and "
-            f"encoder-only models arrive with slice 4 of the port; this "
-            f"slice builds causal attention stacks")
+            f"encoder-only models are not ported yet (MoE and xLSTM blocks "
+            f"are the rest of slice 4 of the port); it builds causal "
+            f"stacks of {sorted(BLOCK_KINDS)} blocks")
 
 
 def _stack(trees: list) -> Any:
@@ -54,10 +63,13 @@ def _stack(trees: list) -> Any:
     return torch.stack(trees)
 
 
-def _block_init(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
+def _block_init(kind: str, cfg: ModelConfig, gen: torch.Generator,
+                dtype) -> Params:
     d = cfg.d_model
+    mixer = ({"rec": rglru.rec_block_init(gen, cfg, dtype)} if kind == "rec"
+             else {"attn": layers.attn_init(gen, cfg, dtype)})
     return {"norm1": layers.norm_init(d, cfg.norm, dtype, gen.device),
-            "attn": layers.attn_init(gen, cfg, dtype),
+            **mixer,
             "norm2": layers.norm_init(d, cfg.norm, dtype, gen.device),
             "ffn": layers.ffn_init(gen, cfg, dtype=dtype)}
 
@@ -72,33 +84,36 @@ def init(cfg: ModelConfig, generator: torch.Generator,
     dtype = cfg.dtype
     params: Params = {"segments": []}
     for seg in cfg.segments():
-        reps = [{f"b{i}": _block_init(cfg, generator, dtype)
-                 for i in range(len(seg.pattern))} for _ in range(seg.reps)]
+        reps = [{f"b{i}": _block_init(kind, cfg, generator, dtype)
+                 for i, kind in enumerate(seg.pattern)}
+                for _ in range(seg.reps)]
         params["segments"].append(_stack(reps))
     params["embed"] = layers.embed_init(generator, cfg, dtype)
     params["final_norm"] = layers.norm_init(cfg.d_model, cfg.norm, dtype,
                                             generator.device)
-    return _tree(lambda t: t.to(dev), params)
+    return _tree(lambda t, _: t.to(dev), params)
 
 
-def _tree(fn, tree):
+def _tree(fn, tree, key: str = ""):
+    """Map ``fn(leaf, key)`` over a tree; ``key`` is the leaf's dict key."""
     if isinstance(tree, dict):
-        return {k: _tree(fn, v) for k, v in tree.items()}
+        return {k: _tree(fn, v, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_tree(fn, v) for v in tree]
-    return fn(tree)
+        return [_tree(fn, v, key) for v in tree]
+    return fn(tree, key)
 
 
 def params_from_jax(cfg: ModelConfig, params,
                     device: torch.device | str | None = None) -> Params:
     """The port's parameter tree holding the reference's LM parameters
     (numpy arrays or anything ``np.asarray`` takes — masked or packed FFN
-    leaves alike), in ``cfg.dtype`` on ``device`` (None -> the card)."""
+    leaves alike), in ``cfg.dtype`` on ``device`` (None -> the card); the
+    RG-LRU's ``lambda`` stays fp32, as in the reference."""
     dev = device_lib.resolve(device)
 
-    def conv(a) -> torch.Tensor:
-        return torch.tensor(np.asarray(a, np.float32), device=dev).to(
-            cfg.dtype)
+    def conv(a, key: str) -> torch.Tensor:
+        t = torch.tensor(np.asarray(a, np.float32), device=dev)
+        return t if key in rglru.FP32_PARAMS else t.to(cfg.dtype)
 
     return _tree(conv, params)
 
@@ -108,27 +123,29 @@ def params_from_jax(cfg: ModelConfig, params,
 # ---------------------------------------------------------------------------
 
 
+def _block_cache_shapes(kind: str, cfg: ModelConfig, batch: int,
+                        max_seq: int) -> dict[str, tuple]:
+    if kind == "rec":
+        return rglru.rec_state_specs(batch, cfg, cfg.dtype)
+    s = (min(cfg.local_window or max_seq, max_seq)
+         if kind == "local_attn" else max_seq)
+    return layers.kv_cache_shapes(batch, cfg.n_kv_heads, s,
+                                  cfg.resolved_head_dim, cfg.dtype,
+                                  cfg.kv_dtype)
+
+
 def _cache_shapes(cfg: ModelConfig, batch: int, max_seq: int):
-    dh = cfg.resolved_head_dim
-    out = []
-    for seg in cfg.segments():
-        one = {}
-        for i, kind in enumerate(seg.pattern):
-            s = (min(cfg.local_window or max_seq, max_seq)
-                 if kind == "local_attn" else max_seq)
-            one[f"b{i}"] = {
-                name: ((seg.reps,) + shape, dt)
-                for name, (shape, dt) in layers.kv_cache_shapes(
-                    batch, cfg.n_kv_heads, s, dh, cfg.dtype,
-                    cfg.kv_dtype).items()}
-        out.append(one)
-    return out
+    return [{f"b{i}": {name: ((seg.reps,) + shape, dt)
+                       for name, (shape, dt) in _block_cache_shapes(
+                           kind, cfg, batch, max_seq).items()}
+             for i, kind in enumerate(seg.pattern)}
+            for seg in cfg.segments()]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device: torch.device | str | None = None):
-    """Empty KV caches (k/v and int8 scales zero, kpos -1) on ``device``
-    (None -> card)."""
+    """Empty caches (k/v, int8 scales and recurrent state zero, kpos -1) on
+    ``device`` (None -> card)."""
     dev = device_lib.resolve(device)
     return [{b: {name: torch.full(shape, -1 if name == "kpos" else 0,
                                   dtype=dt, device=dev)
@@ -146,11 +163,14 @@ def cache_trim_positions(caches, length: int):
     """Invalidate every cache entry at position >= ``length``: kpos to -1,
     K/V and int8 scales to zero — the init state of those slots (the
     bucketed-prefill epilogue; slot == position in every global-attention
-    cache)."""
+    cache). Recurrent state has no positions to trim: it raises."""
     out = []
     for seg in caches:
         new = {}
         for b, c in seg.items():
+            if "kpos" not in c:
+                raise ValueError(f"cache block {b} holds recurrent state, "
+                                 f"which cannot be trimmed by position")
             smax = c["kpos"].shape[-1]
             keep = torch.arange(smax, device=c["kpos"].device) < length
             new[b] = {
@@ -201,6 +221,12 @@ def _attention_sublayer(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
         s = x.shape[1]
         if window and s > window:
             attn = layers.attention_banded(q, k, v, window=window)
+        elif cfg.causal and cfg.attn_scores_f32:
+            # the flash kernel (plain version on the CPU); for s <= window
+            # the window mask is a no-op: qpos - window < 0 <= kpos
+            attn = flash_ops.flash_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                chunk=cfg.attn_chunk)
         elif s > cfg.attn_chunk and cfg.causal:
             attn = layers.attention_chunked(q, k, v, causal=True,
                                             chunk=cfg.attn_chunk,
@@ -243,10 +269,20 @@ def _attention_sublayer(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
 def _block_apply(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                  mode: str, rope, mask_ids, cache, pos):
     """x [B,S,D] (prefill) or [B,1,D] (decode) -> (x, new cache)."""
-    if kind not in ("attn", "local_attn"):
-        raise NotImplementedError(f"block kind {kind!r} arrives with slice 4")
-    x, new_cache = _attention_sublayer(cfg, p, x, rope, mode, kind, cache,
-                                       pos)
+    if kind == "rec":
+        xn = layers.norm_apply(p["norm1"], x, cfg.norm)
+        if mode == "decode":
+            y, new_cache = rglru.rec_block_step(p["rec"], xn[:, 0], cache,
+                                                cfg)
+            y = y[:, None, :]
+        else:
+            y, new_cache = rglru.rec_block_apply(p["rec"], xn, cfg)
+        x = x + y
+    elif kind in ("attn", "local_attn"):
+        x, new_cache = _attention_sublayer(cfg, p, x, rope, mode, kind,
+                                           cache, pos)
+    else:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     xn = layers.norm_apply(p["norm2"], x, cfg.norm)
     return x + layers.ffn_apply(p["ffn"], xn, cfg, mask_ids=mask_ids), \
         new_cache

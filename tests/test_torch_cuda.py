@@ -523,3 +523,183 @@ def test_int8_volume_on_card(cuda):
     want = engine.predict_volume(plan, volume, chunk=16, device=cuda)
     for g, w in zip(outs[True], want):
         torch.testing.assert_close(g, w, rtol=0, atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid path's kernels: rglru_scan and flash_attention
+# ---------------------------------------------------------------------------
+
+# rglru_scan: fp32, a sequential carry against the plain version's odd/even
+# tree of the same products and sums (|a| < 1, so rounding does not grow)
+TOL_SCAN = 1e-5
+# flash_attention in fp32: sums in another order, the online rescaling
+TOL_FLASH_F32 = 1e-5
+# ... in bf16: one bf16 ulp of the plain value plus 2^-8 max|v| (p rounded
+# to bf16 before the normalisation in the kernel, after it in the plain
+# version: the two fp32 sums differ by at most 2^-8 sum_j p_j |v_j|)
+FLASH_BF16_V_SHARE = 2.0 ** -8
+
+
+def _gates(shape, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    a = 0.85 + 0.149 * torch.rand(shape, generator=gen)
+    b = torch.randn(shape, generator=gen) * torch.sqrt(1 - a * a)
+    return a.to(device), b.to(device)
+
+
+@pytest.mark.parametrize("shape", [
+    (32, 128, 2560),      # the served shape: 8 requests x 4 masks
+    (3, 37, 11),          # ragged B, S and W
+    (2, 1, 5),            # one step
+    (1, 4099, 130)])      # long S past the unrolled loop, ragged tail
+def test_rglru_scan_kernel_matches_plain(cuda, shape):
+    from repro_torch.kernels.rglru_scan import ops as sops
+    from repro_torch.kernels.rglru_scan import ref as sref
+    a, b = _gates(shape, cuda, seed=sum(shape))
+    before = sops.rglru_scan.launches
+    got = sops.rglru_scan(a, b)
+    assert sops.rglru_scan.launches == before + 1
+    torch.testing.assert_close(got, sref.rglru_scan_ref(a, b),
+                               rtol=TOL_SCAN, atol=TOL_SCAN)
+
+
+def test_rglru_scan_refuses_bad_operands(cuda):
+    from repro_torch.kernels.rglru_scan import ops as sops
+    a, b = _gates((2, 8, 6), cuda)
+    before = sops.rglru_scan.launches
+    with pytest.raises(TypeError, match="float32"):
+        sops.rglru_scan(a.bfloat16(), b.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        sops.rglru_scan(a.transpose(1, 2), b.transpose(1, 2))
+    with pytest.raises(ValueError, match=r"\[B, S, W\]"):
+        sops.rglru_scan(a[0], b[0])
+    with pytest.raises(ValueError, match=r"\[B, S, W\]"):
+        sops.rglru_scan(a, b[:, :4].contiguous())
+    with pytest.raises(ValueError, match="CUDA device"):
+        sops.rglru_scan(a, b.cpu())
+    assert sops.rglru_scan.launches == before
+
+
+def _qkv(b, h, hkv, s, dh, dtype, device, seed=0, skv=None):
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn((b, n, sl, dh), generator=gen).to(device, dtype)
+                 for n, sl in ((h, s), (hkv, skv or s), (hkv, skv or s)))
+
+
+def _flash_close(got, want, v):
+    assert got.dtype == want.dtype
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        ulp = (want.float().abs().clamp_min(1e-30).log2().floor() - 7).exp2()
+        assert bool((err <= ulp + FLASH_BF16_V_SHARE
+                     * v.float().abs().max()).all()), float(err.max())
+    else:
+        torch.testing.assert_close(got, want, rtol=TOL_FLASH_F32,
+                                   atol=TOL_FLASH_F32)
+
+
+@pytest.mark.parametrize("dh", (16, 30, 80, 128, 256))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("causal", (True, False))
+def test_flash_attention_kernel_matches_plain(cuda, dh, dtype, causal):
+    """Ragged S (129: a third q tile and key tile of one row), GQA 4/2;
+    dh 30 rows are no whole number of 16-byte words (element-wise staging)
+    nor of float4s (zero-padded head columns)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as far
+    q, k, v = _qkv(2, 4, 2, 129, dh, getattr(torch, dtype), cuda, seed=dh)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    assert fa.flash_attention.launches == before + 1
+    _flash_close(got, far.flash_attention_ref(q, k, v, causal=causal), v)
+
+
+@pytest.mark.parametrize("case", [
+    (32, 10, 1, 128, 256, True),      # recurrentgemma-2b prefill, MQA
+    (32, 12, 2, 128, 128, True),      # qwen2-1.5b prefill
+    (2, 8, 1, 1100, 64, True),        # past the plain version's 1024 chunk
+    (3, 4, 4, 1, 32, True),           # one position
+    (2, 4, 1, 70, 128, False)])       # full attention, and Skv != Sq
+def test_flash_attention_kernel_shapes(cuda, case):
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as far
+    b, h, hkv, s, dh, causal = case
+    q, k, v = _qkv(b, h, hkv, s, dh, torch.bfloat16, cuda, seed=s)
+    _flash_close(fa.flash_attention(q, k, v, causal=causal),
+                 far.flash_attention_ref(q, k, v, causal=causal), v)
+    if not causal:                    # Skv != Sq is legal without the mask
+        q, k, v = _qkv(b, h, hkv, s, dh, torch.float32, cuda, seed=1,
+                       skv=s + 31)
+        _flash_close(fa.flash_attention(q, k, v, causal=False),
+                     far.flash_attention_ref(q, k, v, causal=False), v)
+
+
+def test_flash_attention_unaligned_operands(cuda):
+    """Contiguous operands whose data does not start on 16 bytes take the
+    element-wise staging, with the same result bit for bit."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    q, k, v = _qkv(2, 4, 2, 33, 64, torch.bfloat16, cuda, seed=3)
+
+    def shifted(t):
+        out = torch.empty(t.numel() + 1, dtype=t.dtype,
+                          device=t.device)[1:].view(t.shape)
+        return out.copy_(t)
+
+    qs, ks, vs = map(shifted, (q, k, v))
+    assert qs.is_contiguous() and qs.data_ptr() % 16
+    torch.testing.assert_close(fa.flash_attention(qs, ks, vs),
+                               fa.flash_attention(q, k, v), rtol=0, atol=0)
+
+
+def test_flash_attention_refuses_bad_operands(cuda):
+    from repro_torch.kernels.flash_attention import ops as fa
+    q, k, v = _qkv(2, 4, 2, 16, 32, torch.float32, cuda)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="causal needs Sq == Skv"):
+        fa.flash_attention(q, k[:, :, :8].contiguous(),
+                           v[:, :, :8].contiguous(), causal=True)
+    q3, k3, v3 = _qkv(1, 2, 1, 4, 264, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head width 264"):
+        fa.flash_attention(q3, k3, v3)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attention(q, k.bfloat16(), v.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        fa.flash_attention(q[:, :3].contiguous(), k, v)
+    assert fa.flash_attention.launches == before
+
+
+def test_hybrid_serve_uncertain_on_card(cuda):
+    """The hybrid path at smoke size (rec, rec, local_attn, rec): one
+    prefill runs 3 rglru_scan and 1 flash_attention launches, the per-op
+    decode none (and no fused_decode); tokens equal the CPU's and the
+    rel-unc agrees within the reference's posterior bar."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rglru_scan import ops as sops
+    cfg = _SMOKE("recurrentgemma-2b")
+    model = lm_model.build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (3, 12),
+                         generator=torch.Generator().manual_seed(1))
+    counters = (sops.rglru_scan, fa.flash_attention, dops.fused_decode)
+    before = [c.launches for c in counters]
+    got = engine.serve_uncertain(
+        model, _to(params, cuda), toks,
+        engine.ServeConfig(max_new_tokens=6), device=cuda)
+    assert [c.launches - b for c, b in zip(counters, before)] == [3, 1, 0]
+    want = engine.serve_uncertain(model, params, toks,
+                                  engine.ServeConfig(max_new_tokens=6),
+                                  device="cpu")
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-4, atol=1e-5)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)

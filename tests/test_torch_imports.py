@@ -29,13 +29,16 @@ def test_port_imports_no_jax_and_no_reference():
         "k.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
         "assert 'repro_torch.distributed.compression' in names, names\n"
-        "assert len(names) >= 35, names\n"
+        "for n in ('models.rglru', 'kernels.rglru_scan.ops',\n"
+        "          'kernels.flash_attention.ops'):\n"
+        "    assert 'repro_torch.' + n in names, names\n"
+        "assert len(names) >= 42, names\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(SRC),
                          capture_output=True, text=True, timeout=120,
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 35
+    assert int(out.stdout.strip()) >= 42
 
 
 def _tiny_plan():

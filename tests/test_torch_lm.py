@@ -245,6 +245,12 @@ def test_cache_trim_positions_matches_jax(qwen):
                                   "hubert-xlarge", "qwen2-vl-72b"))
 def test_later_slice_families_raise(arch):
     cfg = t_registry.smoke_config(arch)
+    if arch == "recurrentgemma-2b":
+        # the hybrid family is built since slice 4 brought the rec block;
+        # a hybrid holding a block kind still to port raises as the rest do
+        t_model.build_model(cfg)
+        cfg = dataclasses.replace(cfg, segments_override=(
+            (("rec", "rec", "local_attn"), 1), (("mlstm",), 1)))
     with pytest.raises(NotImplementedError, match="slice 4"):
         t_model.build_model(cfg)
     with pytest.raises(NotImplementedError, match="slice 4"):
