@@ -21,6 +21,12 @@ and read just after:
   bf16 scales, dequantized in the kernels), fused and per-op; and the same
   LM traffic with an int8 KV cache (``kv_dtype="int8"``), which has no
   fused lowering and runs the per-op decode step.
+* The paper's design flow: ``ivim.train.train`` trains uIVIM-NET at the
+  same width (800 steps, batch 128, lr 3e-3), ``ivim.evaluate`` sweeps the
+  five SNR levels (2,000 voxels each) against the Phase-2 requirements, and
+  the Phase-3 plans follow: the trained model packed and served per-op and
+  fused, and ``core.transform.plan_hardware`` on a dropout MLP with its
+  H100-modeled latency.
 * Hybrid LM serving: ``recurrentgemma-2b`` at its published widths and full
   depth (26 layers = (rec, rec, local_attn) x 8 + (rec, rec), bf16, random
   weights) with 4 masks; ``serve_uncertain`` serves the same traffic (8
@@ -36,12 +42,23 @@ Phases, each on its own line; any failure raises and exits nonzero:
      and int8 body, against its ref.py version on the card at the main
      shapes and at ragged shapes: max abs error, kernel ms, plain ms, the
      bound from bytes and FLOPs, and the parameter bytes the kernel reads;
+     then the moments kernel against its plain version and
+     ``torch.std_mean`` (``library_ms``) at the per-op IVIM chunk, the two
+     LM posteriors, N = 64, a ragged shape and in bf16;
   3. IVIM main path: the volume served fused and per-op, and through the
      plain fused_moments_ref, each held to the unpacked model at 2e-4, with
-     the launch counts of each leg asserted and voxels/s printed; then at
-     int8: fused (one int8 moments launch a chunk) and per-op (one int8
-     masked_ffn launch a chunk) within 2e-4 of each other and 2e-2 of the
+     the launch counts of each leg asserted (per-op: one masked_ffn and one
+     moments launch a chunk) and voxels/s printed; then at int8: fused (one
+     int8 moments launch a chunk) and per-op (one int8 masked_ffn and one
+     moments launch a chunk) within 2e-4 of each other and 2e-2 of the
      fp32 model, the int8 parameter bytes at most 0.35x the fp32 ones;
+     then the design flow: one train step on the card against the CPU's
+     plain tier from identical parameters, 800 steps with a falling loss
+     (no kernel launched), the SNR sweep with one moments launch a level
+     and SNR 5 worse than SNR 50 in RMSE and uncertainty, the trained plan
+     per-op and fused within 2e-4 of the unpacked model, and
+     ``plan_hardware``'s plan executed on the card beside its modeled
+     latency;
   4. LM kernel vs plain at full width (masked and packed FFN, bf16, and
      the fp32 copy) and at a ragged smoke shape, with the per-op step's
      time and the kernel's per-stage times beside it;
@@ -52,7 +69,8 @@ Phases, each on its own line; any failure raises and exits nonzero:
      CPU, every cached vector within half an int8 step of its value, no
      fused_decode launch, tokens compared with the bf16-KV per-op leg
      (reported, not gated). Each qwen2-1.5b prefill runs
-     ``flash_attention`` once a layer (28 launches, asserted);
+     ``flash_attention`` once a layer (28 launches, asserted); each leg's
+     moments launches (one a posterior) are printed;
   6. the hybrid kernels vs plain on the card: ``rglru_scan`` at the served,
      a long and a ragged shape, ``flash_attention`` at the recurrentgemma-2b
      and qwen2-1.5b prefill shapes (bf16; fp32; full attention; a ragged
@@ -74,6 +92,7 @@ are true fp32.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -111,6 +130,22 @@ TOL_KV_SCALE = 1e-5
 TOL_LM_UNC = 1e-3
 LM_FLASH_LAUNCHES = 28          # one a layer of qwen2-1.5b's prefill
 HY_ARCH, HY_PATH_LAYERS = "recurrentgemma-2b", 5
+# moments vs its plain version: the reference's own kernel-vs-ref bar
+# (tests/test_kernels.py); bf16 within one bf16 ulp of the plain value
+TOL_MO_MEAN = dict(rtol=1e-5, atol=1e-6)
+TOL_MO_STD = dict(rtol=1e-4, atol=1e-5)
+# the design flow: uIVIM-NET at the serving width, examples/train_ivim.py's
+# settings
+FLOW_STEPS, FLOW_BATCH, FLOW_LR = 800, 128, 3e-3
+FLOW_SNR_VOXELS = 2000
+# one Adam step from identical parameters, card vs CPU: fp32 products in
+# another order. The directions batch-statistics BN hides from the loss
+# (the biases ahead of BN; fc1's row for the b=0 input, 1.0 in every voxel)
+# get float-noise gradients that Adam turns into steps of about lr: those
+# are held to 2 lr and reported apart.
+TOL_TRAIN_STEP = 1e-5
+TRAIN_NULL = {"fc1.b": (...,), "fc2.b": (...,), "fc1.w": (slice(None), 0)}
+MLP_WIDTHS, MLP_DROPOUT, MLP_BATCH = (11, 32, 32, 1), (1, 2), 512
 # rglru_scan vs its plain version: fp32, a sequential fmaf carry against the
 # reference's odd/even tree of products and sums; with |a| < 1 the rounding
 # does not grow with S
@@ -158,8 +193,10 @@ def _within_bf16_ulp(got, want) -> float:
 def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
     """Phases 4 and 5: the LM decode kernel against its plain version at
     full width, then ``serve_uncertain`` fused and per-op (``counters``:
-    masked_ffn, samples, moments, fused_decode, flash_attention,
-    rglru_scan). Returns the fused_decode record of the kernels line."""
+    masked_ffn, samples, fused moments, the moments kernel, fused_decode,
+    flash_attention, rglru_scan; the moments kernel's launches — one a
+    posterior — are printed, not asserted). Returns the fused_decode record
+    of the kernels line."""
     import dataclasses
 
     import torch
@@ -317,13 +354,14 @@ def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         counts = tuple(ctr.launches for ctr in counters)
+        counts, mo_launches = counts[:3] + counts[4:], counts[3]
         expect = (0, 0, 0, fused_steps if fused is None else 0,
                   LM_FLASH_LAUNCHES, 0)
         if counts != expect:
             raise AssertionError(f"LM {c.dtype} fused={fused} launches "
-                                 f"(masked_ffn, samples, moments, decode, "
-                                 f"flash, scan) = {counts}, expected "
-                                 f"{expect}")
+                                 f"(masked_ffn, samples, fused moments, "
+                                 f"decode, flash, scan) = {counts}, "
+                                 f"expected {expect}")
         if fused is None and fused_steps and not fns.fused_live():
             raise AssertionError("fused leg fell back to the per-op path")
         gen, unc, _ = out
@@ -338,10 +376,11 @@ def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
                decode_ms_per_step=f"{step_ms:.3f}",
                tokens_per_s=f"{LM_BATCH * LM_NEW / secs:.1f}",
                decode_tokens_per_s=f"{1e3 * LM_BATCH / step_ms:.1f}",
-               launches=counts)
+               launches=counts, moments_launches=mo_launches)
+        moments_launches[(c.dtype, c.kv_dtype, fused)] = mo_launches
         return out, counts
 
-    legs = {}
+    legs, moments_launches = {}, {}
     for fused in (None, False):
         legs[("bf16", fused)] = leg(cfg, params, fused)
     same = float((legs[("bf16", None)][0][0] == legs[("bf16", False)][0][0])
@@ -415,7 +454,8 @@ def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
         "packed_bound_ms": recs["packed"]["bound_ms"],
         "ragged_ms": recs["ragged"]["ms"], "fp32_ms": recs["fp32"]["ms"],
         "per_op_step_ms": main["per_op_step_ms"],
-        "fused_step_ms": main["fused_step_ms"]}
+        "fused_step_ms": main["fused_step_ms"],
+        "moments_per_op_launches": moments_launches[(cfg.dtype, "", False)]}
 
 
 def _leaves(tree):
@@ -454,7 +494,10 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
             ctr.launches = 0
 
     def launches():
-        return tuple(ctr.launches for ctr in counters)
+        """Launch counts without the moments kernel's (index 3): its one
+        launch a posterior is printed, not asserted."""
+        counts = tuple(ctr.launches for ctr in counters)
+        return counts[:3] + counts[4:]
 
     # ---- phase 6: the two kernels against their plain versions ------------
     scan = {}
@@ -609,8 +652,8 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
     expect = (0, 0, 0, 0, n_local, n_rec)
     if counts != expect:
         raise AssertionError(f"{HY_ARCH} launches (masked_ffn, samples, "
-                             f"moments, decode, flash, scan) = {counts}, "
-                             f"expected {expect}")
+                             f"fused moments, decode, flash, scan) = "
+                             f"{counts}, expected {expect}")
     if gen_toks.shape != (LM_BATCH, LM_PROMPT + LM_NEW) \
             or not bool(torch.isfinite(unc).all()) \
             or not bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all()):
@@ -624,7 +667,8 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
            tokens_per_s=f"{LM_BATCH * LM_NEW / secs:.1f}",
            decode_tokens_per_s=f"{1e3 * LM_BATCH / loop_ms:.1f}",
            rec_state_mbytes=state_bytes / 1e6, kv_cache_mbytes=kv_bytes / 1e6,
-           rel_unc_mean=float(unc.mean()), launches=counts)
+           rel_unc_mean=float(unc.mean()), launches=counts,
+           moments_launches=counters[3].launches)
     del params, gen_toks, unc
     torch.cuda.empty_cache()
 
@@ -692,6 +736,261 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
             for k in ("ms", "library_ms", "bound_ms")}}]
 
 
+def moments_phase(dev, time_ms, bound, nbytes) -> dict:
+    """Phase 2b: the moments kernel against its plain version and against
+    ``torch.std_mean`` (the one PyTorch call that computes the same
+    function: ``library_ms``) at the shapes its callers give it. Returns
+    the records by shape."""
+    import torch
+    from repro_torch.kernels.moments import ops as mo_ops
+    from repro_torch.kernels.moments import ref as mo_ref
+
+    def device_ms(fn, reps: int = 10):
+        """The card's own time a call (its kernels' profiler events), apart
+        from the host's: a back-to-back event timing of a small call
+        measures whichever of the two is longer."""
+        prof = torch.profiler
+        with prof.profile(activities=[prof.ProfilerActivity.CPU,
+                                      prof.ProfilerActivity.CUDA]) as tr:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in tr.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        return us / reps / 1e3 if us else "not measured"
+
+    gen = torch.Generator(dev).manual_seed(6)
+    recs = {}
+    for name, shape, dt in (
+            ("main", (8, CHUNK, 4), torch.float32),     # per-op IVIM chunk
+            ("qwen2_posterior", (4, LM_BATCH, 151936), torch.float32),
+            ("rg_posterior", (4, LM_BATCH, 256000), torch.float32),
+            ("long", (64, 65536, 4), torch.float32),    # the reference's N cap
+            ("ragged", (3, 4097, 5), torch.float32),
+            ("bf16", (8, CHUNK, 4), torch.bfloat16)):
+        x = torch.randn(shape, generator=gen, device=dev).to(dt)
+        got, want = mo_ops.moments(x), mo_ref.moments_ref(x)
+        torch.cuda.synchronize()
+        if dt == torch.bfloat16:            # one bf16 ulp of the plain value
+            for g, w in zip(got, want):
+                g, w = g.float(), w.float()
+                ulp = (w.abs().clamp_min(1e-30).log2().floor() - 7).exp2()
+                if not bool(((g - w).abs() <= ulp).all()):
+                    raise AssertionError(f"moments {name}: beyond one bf16 "
+                                         f"ulp, {float((g - w).abs().max())}")
+        else:
+            torch.testing.assert_close(got[0], want[0], **TOL_MO_MEAN)
+            torch.testing.assert_close(got[1], want[1], **TOL_MO_STD)
+        lib_std, lib_mean = torch.std_mean(x, dim=0, correction=0)
+
+        def lib(x=x):
+            return torch.std_mean(x, dim=0, correction=0)
+
+        rec = {"shape": name, "dims": list(shape), "dtype": dt,
+               "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                                  for g, w in zip(got, want)),
+               "library_max_abs_err": max(
+                   float((g.float() - w.float()).abs().max())
+                   for g, w in zip((lib_mean, lib_std), want)),
+               "ms": time_ms(lambda: mo_ops.moments(x)),
+               "plain_ms": time_ms(lambda: mo_ref.moments_ref(x)),
+               "library_ms": time_ms(lib),
+               "device_ms": device_ms(lambda: mo_ops.moments(x)),
+               "library_device_ms": device_ms(lib)}
+        # about 4 flops a sample (sum, center, square-add); inputs read
+        # once, the two outputs written once
+        rec["bound_ms"], rec["bound_by"] = bound(4 * x.numel(),
+                                                 nbytes(x, *got))
+        _phase("moments_kernel", **rec)
+        recs[name] = rec
+        del x, got, want, lib_std, lib_mean
+    for value in (1.0, -0.375):             # a constant: std exactly 0
+        mean, std = mo_ops.moments(torch.full((8, CHUNK, 4), value,
+                                              device=dev))
+        if not (bool((std == 0).all()) and bool((mean == value).all())):
+            raise AssertionError(f"moments of the constant {value}: std "
+                                 f"{float(std.abs().max())}")
+    tiny = torch.ones((1, 1, 1), device=dev)     # one element: the fill
+    _phase("moments_kernel", shape="constant", std_exactly_zero=True,
+           one_element_ms=time_ms(lambda: mo_ops.moments(tiny), 200),
+           one_element_device_ms=device_ms(lambda: mo_ops.moments(tiny),
+                                           50))
+    torch.cuda.empty_cache()
+    return recs
+
+
+def flow_phases(dev, time_ms, counters) -> dict:
+    """Phases 3b-3d, the paper's design flow on the card: train uIVIM-NET
+    at the serving width, evaluate it over the SNR sweep against the
+    Phase-2 requirements, then the Phase-3 plans — the trained model packed
+    and served per-op and fused, and ``transform.plan_hardware`` on the
+    reference test's MLP with its H100-modeled latency beside the measured
+    one. ``counters``: masked_ffn, samples, moments (fused_plan), moments
+    (the moments kernel). Returns what the kernels line reports."""
+    import torch
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.core import transform
+    from repro_torch.ivim import data as ivim_data
+    from repro_torch.ivim import evaluate as ivim_eval
+    from repro_torch.ivim import model as ivim_model
+    from repro_torch.ivim import physics
+    from repro_torch.ivim import train as ivim_train
+    from repro_torch.serving import engine
+
+    def reset():
+        for ctr in counters:
+            ctr.launches = 0
+
+    def launches():
+        return tuple(ctr.launches for ctr in counters)
+
+    cfg = ivim_model.IvimConfig(b_values=physics.DENSE_B_VALUES, n_masks=8,
+                                scale=2.0)
+    tcfg = ivim_train.TrainConfig(steps=FLOW_STEPS, batch_size=FLOW_BATCH,
+                                  lr=FLOW_LR, seed=0)
+
+    # ---- one step from identical parameters, card vs the CPU's plain tier
+    ds = ivim_data.make_dataset(ivim_data.SyntheticConfig(
+        b_values=cfg.b_values, seed=0), device=dev)
+    x = ivim_data.Batcher(ds, FLOW_BATCH, seed=0).batch(0)
+    models, losses = {}, {}
+    for d in ("cpu", dev):
+        m = ivim_model.init(cfg, torch.Generator().manual_seed(0), device=d)
+        step, init_opt = ivim_train.make_train_step(cfg, tcfg)
+        losses[str(d)] = step(m, init_opt(m), x.to(d)).item()
+        models[str(d)] = m
+    diff = null_diff = 0.0
+    for (name, p), q in zip(models["cpu"].named_parameters(),
+                            models[str(dev)].parameters()):
+        err = (q.detach().cpu() - p.detach()).abs()
+        if name in TRAIN_NULL:
+            null_diff = max(null_diff, float(err[TRAIN_NULL[name]].max()))
+            err[TRAIN_NULL[name]] = 0.0
+        diff = max(diff, float(err.max()))
+    loss_rel = abs(losses[str(dev)] - losses["cpu"]) / losses["cpu"]
+    if diff > TOL_TRAIN_STEP or null_diff > 2 * FLOW_LR \
+            or loss_rel > TOL_TRAIN_STEP:
+        raise AssertionError(f"one train step, card vs CPU: parameters "
+                             f"{diff}, BN-null directions {null_diff}, loss "
+                             f"{loss_rel}")
+    _phase("flow_train_step", width=cfg.width, masks=cfg.n_masks,
+           max_abs_param_diff=diff, tol=TOL_TRAIN_STEP,
+           bn_null_max_abs_diff=null_diff, null_tol=2 * FLOW_LR,
+           loss_rel_diff=loss_rel)
+    del models, ds, x
+
+    # ---- phase 3b: train --------------------------------------------------
+    reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model, hist = ivim_train.train(cfg, tcfg, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    first, last = sum(hist[:10]) / 10, sum(hist[-10:]) / 10
+    if len(hist) != FLOW_STEPS or not all(map(math.isfinite, hist)) \
+            or not last < 0.8 * first:      # the reference's training bar
+        raise AssertionError(f"training: {len(hist)} steps, first 10 "
+                             f"{first}, last 10 {last}")
+    if launches() != (0, 0, 0, 0):
+        raise AssertionError(f"training launched kernels {launches()}")
+    _phase("flow_train", width=cfg.width, masks=cfg.n_masks,
+           scale=cfg.scale, steps=FLOW_STEPS, batch=FLOW_BATCH, lr=FLOW_LR,
+           seconds=f"{train_s:.3f}",
+           ms_per_step=f"{1e3 * train_s / FLOW_STEPS:.3f}",
+           loss_first=hist[0], loss_last=hist[-1], mean_first_10=first,
+           mean_last_10=last)
+
+    # ---- phase 3c: the SNR sweep ------------------------------------------
+    reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    results = ivim_eval.evaluate_snr_sweep(model, n_voxels=FLOW_SNR_VOXELS,
+                                           device=dev)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t
+    sweep_launches = launches()
+    n_snr = len(ivim_data.SNR_LEVELS)
+    if sweep_launches != (0, 0, 0, n_snr):
+        raise AssertionError(f"SNR sweep launches (masked_ffn, samples, "
+                             f"fused moments, moments) = {sweep_launches}, "
+                             f"expected {(0, 0, 0, n_snr)}")
+    for snr, r in sorted(results.items()):
+        unc = sum(r["rel_unc"].values()) / len(r["rel_unc"])
+        _phase("flow_eval", snr=snr, voxels=FLOW_SNR_VOXELS,
+               rmse_recon=r["rmse_recon"], mean_rel_unc=unc,
+               rmse_params=r["rmse_params"], rel_unc=r["rel_unc"])
+    report = ivim_eval.requirement_report(results)
+    lo, hi = min(results), max(results)
+    unc_lo, unc_hi = (sum(results[s]["rel_unc"].values()) for s in (lo, hi))
+    if not (results[lo]["rmse_recon"] > results[hi]["rmse_recon"]
+            and unc_lo > unc_hi):           # tests/test_system.py's trend
+        raise AssertionError(f"SNR {lo} not worse than SNR {hi}: "
+                             f"{report.rmse_by_snr}, "
+                             f"{report.uncertainty_by_snr}")
+    _phase("flow_eval", seconds=f"{sweep_s:.4f}", launches=sweep_launches,
+           requirements_satisfied=report.satisfied,
+           failures=list(report.failures))
+
+    # ---- phase 3d: the Phase-3 plans --------------------------------------
+    plan = ivim_model.pack_for_serving(model)
+    xs = ivim_data.make_dataset(ivim_data.SyntheticConfig(
+        n_voxels=CHUNK, snr=20.0, b_values=cfg.b_values, seed=99),
+        device=dev)["signals"]
+    want = ivim_model.predict(model, xs)
+    for fused, expect in ((False, (1, 0, 0, 1)), (True, (0, 0, 1, 0))):
+        reset()
+        got = engine.predict_packed(plan, xs, fused=fused, device=dev)
+        torch.cuda.synchronize()
+        if launches() != expect:
+            raise AssertionError(f"trained plan fused={fused} launches "
+                                 f"{launches()}, expected {expect}")
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=TOL_MOMENTS,
+                                       atol=TOL_MOMENTS)
+        _phase("flow_plan", model="trained uIVIM-NET",
+               leg="fused" if fused else "per_op", voxels=CHUNK,
+               max_abs_err=max(float((g - w).abs().max())
+                               for g, w in zip(got, want)),
+               launches=launches())
+
+    mlp = transform.convert(transform.MlpSpec(MLP_WIDTHS, MLP_DROPOUT), 4,
+                            2.0, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+    hp = transform.plan_hardware(mlp, batch=MLP_BATCH)
+    xm = torch.randn((MLP_BATCH, MLP_WIDTHS[0]),
+                     generator=torch.Generator(dev).manual_seed(1),
+                     device=dev)
+    reset()
+    got = plan_lib.execute(hp.plan, xm, device=dev)
+    torch.cuda.synchronize()
+    mlp_launches = launches()
+    want = mlp.apply_all_samples(mlp.params, xm)
+    torch.testing.assert_close(got, want, rtol=TOL_SAMPLES, atol=TOL_SAMPLES)
+    fused = plan_lib.fused_executor(hp.plan, moments=True, device=dev)
+    _phase("flow_plan", model="MlpSpec", widths=list(MLP_WIDTHS),
+           dropout_after=list(MLP_DROPOUT), masks=4, batch=MLP_BATCH,
+           ops=[type(op).__name__ for op in hp.plan.ops],
+           max_abs_err=float((got - want).abs().max()),
+           launches=mlp_launches, schedule=hp.schedule.kind,
+           weight_loads=hp.traffic.weight_loads,
+           modeled_ms=1e3 * hp.modeled_latency_s,
+           modeled_baseline_ms=1e3 * hp.modeled_baseline_s,
+           modeled_speedup=hp.modeled_speedup,
+           measured_per_op_ms=time_ms(
+               lambda: plan_lib.execute(hp.plan, xm, device=dev)),
+           modeled_fused_moments_ms=1e3 * hp.plan.modeled_latency(
+               MLP_BATCH, fused=True),
+           measured_fused_moments_ms=time_ms(lambda: fused(xm)))
+    if not (hp.modeled_speedup > 1 and hp.schedule.kind == "batch"
+            and hp.traffic.weight_loads == 4):
+        raise AssertionError(f"plan_hardware: speedup {hp.modeled_speedup}, "
+                             f"schedule {hp.schedule.kind}, loads "
+                             f"{hp.traffic.weight_loads}")
+    del model, plan
+    torch.cuda.empty_cache()
+    return {"eval_launches": sweep_launches[3], "train_s": train_s,
+            "sweep_s": sweep_s}
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -714,6 +1013,7 @@ def main() -> int:
     from repro_torch.kernels.fused_plan import ref as fp_ref
     from repro_torch.kernels.masked_ffn import ops as mffn_ops
     from repro_torch.kernels.masked_ffn import ref as mffn_ref
+    from repro_torch.kernels.moments import ops as mo_ops
     from repro_torch.serving import engine
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -877,6 +1177,7 @@ def main() -> int:
             _phase("kernel", **{k: rec[k] for k in (
                 "name", "shape", "max_abs_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "weight_bytes")})
+    mo_recs = moments_phase(dev, time_ms, bound, nbytes)
 
     # ---- phase 3: the main path --------------------------------------------
     ref_mean, ref_std = [], []
@@ -887,11 +1188,13 @@ def main() -> int:
     want = (torch.cat(ref_mean).reshape(*VOLUME, 4),
             torch.cat(ref_std).reshape(*VOLUME, 4))
     counters = (mffn_ops.masked_ffn, fp_ops.fused_samples,
-                fp_ops.fused_moments)
+                fp_ops.fused_moments, mo_ops.moments)
 
     def run_leg(fn):
         for c in counters:
-            c.launches = c.int8_launches = 0
+            c.launches = 0
+            if hasattr(c, "int8_launches"):
+                c.int8_launches = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = fn()
@@ -899,8 +1202,8 @@ def main() -> int:
         secs = time.perf_counter() - t
         return out, secs, tuple(c.launches for c in counters)
 
-    def int8_counts():
-        return tuple(c.int8_launches for c in counters)
+    def int8_counts():      # the three wrappers with an int8 body
+        return tuple(c.int8_launches for c in counters[:3])
 
     def plain_volume(plan=plan):
         spec, params = plan_lib.lower_fused(plan)
@@ -919,18 +1222,19 @@ def main() -> int:
     legs = {
         "fused": (lambda: engine.predict_volume(
             plan, volume, chunk=CHUNK, fused=True, device=dev),
-            (0, 0, n_chunks)),
+            (0, 0, n_chunks, 0)),
         "per_op": (lambda: engine.predict_volume(
             plan, volume, chunk=CHUNK, fused=False, device=dev),
-            (n_chunks, 0, 0)),
-        "plain": (plain_volume, (0, 0, 0)),
+            (n_chunks, 0, 0, n_chunks)),
+        "plain": (plain_volume, (0, 0, 0, 0)),
     }
     launches = {}
     for leg, (fn, expect) in legs.items():
         (mean, std), secs, counts = run_leg(fn)
         if counts != expect:
             raise AssertionError(f"{leg} leg launches (masked_ffn, samples, "
-                                 f"moments) = {counts}, expected {expect}")
+                                 f"fused moments, moments) = {counts}, "
+                                 f"expected {expect}")
         if not (torch.isfinite(mean).all() and torch.isfinite(std).all()):
             raise AssertionError(f"{leg} leg: non-finite moments")
         err = max_err((mean, std), want, TOL_MOMENTS)
@@ -942,7 +1246,7 @@ def main() -> int:
     chunk0 = voxels[:CHUNK]
     samples, _, counts = run_leg(lambda: ivim_model.packed_apply(
         plan, chunk0, fused=True, device=dev))
-    if counts != (0, 1, 0):
+    if counts != (0, 1, 0, 0):
         raise AssertionError(f"packed_apply(fused=True) launches {counts}")
     samples_launches = counts[1]
     err = max_err([samples], [ivim_model.apply_all_samples(model, chunk0)],
@@ -955,19 +1259,20 @@ def main() -> int:
     q_legs = {
         "fused": (lambda: engine.predict_volume(
             qplan, volume, chunk=CHUNK, fused=True, device=dev),
-            (0, 0, n_chunks)),
+            (0, 0, n_chunks, 0)),
         "per_op": (lambda: engine.predict_volume(
             qplan, volume, chunk=CHUNK, fused=False, device=dev),
-            (n_chunks, 0, 0)),
-        "plain": (lambda: plain_volume(qplan), (0, 0, 0)),
+            (n_chunks, 0, 0, n_chunks)),
+        "plain": (lambda: plain_volume(qplan), (0, 0, 0, 0)),
     }
     q_out, q_launches = {}, {}
     for leg, (fn, expect) in q_legs.items():
         (mean, std), secs, counts = run_leg(fn)
-        if counts != expect or int8_counts() != expect:
+        if counts != expect or int8_counts() != expect[:3]:
             raise AssertionError(
-                f"int8 {leg} leg launches (masked_ffn, samples, moments) = "
-                f"{counts}, of them int8 {int8_counts()}; expected {expect}")
+                f"int8 {leg} leg launches (masked_ffn, samples, fused "
+                f"moments, moments) = {counts}, of them int8 "
+                f"{int8_counts()}; expected {expect}")
         if not (torch.isfinite(mean).all() and torch.isfinite(std).all()):
             raise AssertionError(f"int8 {leg} leg: non-finite moments")
         err = max_err((mean, std), want, TOL_INT8_VS_FP32)
@@ -989,7 +1294,7 @@ def main() -> int:
            ratio=f"{int8_bytes / fp32_bytes:.4f}")
     q_samples, _, counts = run_leg(lambda: ivim_model.packed_apply(
         qplan, chunk0, fused=True, device=dev))
-    if counts != (0, 1, 0) or int8_counts() != (0, 1, 0):
+    if counts != (0, 1, 0, 0) or int8_counts() != (0, 1, 0):
         raise AssertionError(f"int8 packed_apply(fused=True) launches "
                              f"{counts}, int8 {int8_counts()}")
     err = max_err([q_samples], [ivim_model.apply_all_samples(model, chunk0)],
@@ -997,6 +1302,11 @@ def main() -> int:
     _phase("main_path_int8", leg="packed_apply_fused", voxels=CHUNK,
            max_abs_err_vs_fp32=err, launches=counts)
     q_launches["packed_apply"] = counts
+
+    # ---- phases 3b-3d: the design flow -------------------------------------
+    del volume, voxels, want
+    torch.cuda.empty_cache()
+    flow = flow_phases(dev, time_ms, counters)
 
     # ---- phases 4 and 5: the LM kernel and the LM main path ---------------
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1012,6 +1322,7 @@ def main() -> int:
 
     # ---- phase 8: the kernels line, then the device line ------------------
     main_launches = {"masked_ffn": launches["per_op"][0],
+                     "moments": launches["per_op"][3],
                      "fused_plan_samples": samples_launches,
                      "fused_plan_moments": launches["fused"][2],
                      "masked_ffn_int8": q_launches["per_op"][0],
@@ -1030,6 +1341,23 @@ def main() -> int:
             "weight_bytes": main["weight_bytes"],
             "ragged_ms": next(r["ms"] for r in recs
                               if r["shape"] == "ragged")})
+    mo = mo_recs["main"]
+    line.append({
+        "name": "moments", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moments.cu",
+        "replaces": "src/repro/kernels/moments/kernel.py:39"
+                    " (pallas_call :46)",
+        "launches": main_launches["moments"],
+        "max_abs_err": max(r["max_abs_err"] for r in mo_recs.values()),
+        "ms": mo["ms"], "kernel_ms": mo["ms"], "plain_ms": mo["plain_ms"],
+        "bound_ms": mo["bound_ms"], "bound_by": mo["bound_by"],
+        "library_ms": mo["library_ms"], "device_ms": mo["device_ms"],
+        "library_device_ms": mo["library_device_ms"],
+        "int8_per_op_launches": q_launches["per_op"][3],
+        "eval_launches": flow["eval_launches"],
+        "lm_per_op_launches": decode_rec["moments_per_op_launches"],
+        **{f"{n}_{k}": r[k] for n, r in mo_recs.items() if n != "main"
+           for k in ("ms", "library_ms", "bound_ms")}})
     line.append(decode_rec)
     line.extend(hybrid_recs)
     print(json.dumps({"kernels": line}), flush=True)

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.core import latency_model
 from repro_torch.core import masks as masks_lib
 from repro_torch.core import masksembles
 from repro_torch.core import packing
@@ -56,9 +57,9 @@ from repro_torch.kernels.masked_ffn import ops as mffn_ops
 Params = dict[str, Any]
 
 __all__ = ["SharedDense", "PackedPair", "Activation", "OutputHead",
-           "PackedPlan", "Precision", "activation_fn", "tree_map",
-           "params_from_jax",
-           "fold_bn_dense", "fold_bn_ivim", "compile_ivim",
+           "PackedPlan", "Precision", "ACTIVATIONS", "activation_fn",
+           "tree_map", "params_from_jax",
+           "fold_bn_dense", "fold_bn_ivim", "compile_ivim", "compile_mlp",
            "compile_masked_ffn", "execute", "lower_fused", "execute_fused",
            "fused_executor", "FusedPlanUnsupported", "fused_lowering_counts",
            "pack_ffn_leaves", "ffn_leaves_apply", "lower_fused_decode",
@@ -66,6 +67,9 @@ __all__ = ["SharedDense", "PackedPair", "Activation", "OutputHead",
            "prefill_bucket", "prefill_fused_spec", "compile_prefill_step",
            "decode_stage_traffic", "decode_traffic"]
 
+#: The one activation table: any name that trains in ``core/transform``
+#: compiles here and lowers to the fused kernels.
+ACTIVATIONS = fused_ref.ACTIVATIONS
 activation_fn = fused_ref.act_fn
 
 
@@ -288,6 +292,43 @@ class PackedPlan:
             weight_bytes=w_bytes, act_bytes=(in_el + out_el) * bytes_per_el,
             flops=flops, weight_loads=n)
 
+    def modeled_latency(self, batch: int, *,
+                        spec: latency_model.DeviceSpec = latency_model.H100,
+                        packed: bool = True, batch_level: bool = True,
+                        bytes_per_el: int = 2, fused: bool = False,
+                        moments: bool = True) -> float:
+        """Eq.-2-analogue latency (s) of one batch, summed over ops. With
+        ``packed=False, batch_level=False`` this prices the conventional
+        BayesNN baseline (full hidden widths, weights re-streamed per voxel
+        chunk) on the same op list. ``fused=True`` prices the whole-plan
+        kernel instead: one launch (one fill term) at the roofline of the
+        fused traffic model; ``moments`` (fused only) selects the
+        in-kernel-moments variant vs the samples mode."""
+        n = self.sample_axis
+        if fused:
+            tm = self.traffic(batch, bytes_per_el, fused=True,
+                              moments=moments)
+            return max(tm.flops / spec.peak_flops,
+                       tm.total_bytes / spec.hbm_bw) \
+                + spec.kernel_fill_us * 1e-6
+        t = 0.0
+        for op in self.ops:
+            if isinstance(op, PackedPair):
+                t += latency_model.masked_ffn_latency(
+                    batch, n, op.d_in if packed else op.d_in_full, op.hidden,
+                    op.keep, op.d_out if packed else op.d_out_full,
+                    packed=packed, batch_level=batch_level, spec=spec,
+                    bytes_per_el=bytes_per_el)
+            elif isinstance(op, SharedDense):
+                t += latency_model.matmul_time(batch, op.d_in, op.d_out,
+                                               spec, bytes_per_el)
+            elif isinstance(op, OutputHead):
+                d_in = op.d_in if packed else op.d_in_full
+                per = latency_model.matmul_time(batch, d_in, op.d_out, spec,
+                                                bytes_per_el)
+                t += per * (n if op.per_mask else 1)
+        return t
+
 
 def params_from_jax(plan: PackedPlan, params: Params,
                     device: torch.device | str | None = None) -> PackedPlan:
@@ -412,6 +453,92 @@ def compile_ivim(cfg, params: Params, state: Params) -> PackedPlan:
                       n_masks=cfg.n_masks, groups=groups,
                       out_ranges=tuple(cfg.out_ranges))
 
+
+@torch.no_grad()
+def compile_mlp(model) -> PackedPlan:
+    """Any ``core.transform.MaskedMlp`` chain -> PackedPlan.
+
+    Grammar: leading unmasked hidden layers become :class:`SharedDense`; a
+    run of consecutive masked hidden layers packs pairwise with its
+    successor (out-gather + paired in/out-gather); the final layer becomes
+    an :class:`OutputHead` (in-gathered when the last hidden was masked) or
+    is absorbed into the trailing pair. Chains that interleave unmasked
+    hidden layers *inside* a masked run are not expressible with packed
+    gathers alone and raise NotImplementedError.
+    """
+    spec, params = model.spec, model.params
+    widths = spec.widths
+    n_layers = len(widths) - 1
+    ops: list[Op] = []
+    plan_params: Params = {}
+    cur_idx: np.ndarray | None = None
+    i = 0
+    head_done = False
+    while i < n_layers - 1:
+        layer = params[f"fc{i}"]
+        if "masks" not in layer:
+            if cur_idx is not None:
+                raise NotImplementedError(
+                    "unmasked hidden layer with mask-gathered input "
+                    f"(layer {i}); reorder dropout slots to a trailing run")
+            name = f"fc{i}"
+            ops.append(SharedDense(name, d_in=widths[i], d_out=widths[i + 1],
+                                   activation=spec.activation))
+            plan_params[name] = {"w": layer["w"], "b": layer["b"]}
+            i += 1
+            continue
+        # masked layer i pairs with its successor (hidden or output layer)
+        idx = packing.kept_indices(layer["masks"])
+        if cur_idx is None:
+            w1p = packing.pack_out_dim(layer["w"], idx)
+            d_in = widths[i]
+        else:
+            w1p = packing.pack_pair_dims(layer["w"], cur_idx, idx)
+            d_in = cur_idx.shape[1]
+        entry: Params = {"w1p": w1p,
+                         "b1p": packing.pack_out_dim(layer["b"], idx)}
+        nxt = params[f"fc{i + 1}"]
+        if "masks" in nxt:
+            nidx = packing.kept_indices(nxt["masks"])
+            entry["w2p"] = packing.pack_pair_dims(nxt["w"], idx, nidx)
+            entry["b2p"] = packing.pack_out_dim(nxt["b"], nidx)
+            d_out, cur_idx = nidx.shape[1], nidx
+        else:
+            entry["w2p"] = packing.pack_in_dim(nxt["w"], idx)
+            entry["b2"] = nxt["b"]
+            d_out, cur_idx = widths[i + 2], None
+        name = f"pair{i}"
+        ops.append(PackedPair(name, d_in=d_in, d_in_full=widths[i],
+                              hidden=widths[i + 1], keep=idx.shape[1],
+                              d_out=d_out, d_out_full=widths[i + 2],
+                              activation=spec.activation))
+        plan_params[name] = entry
+        if i + 1 == n_layers - 1:       # the pair consumed the output layer
+            if spec.final_activation:
+                ops.append(Activation(spec.final_activation))
+            head_done = True
+        else:
+            ops.append(Activation(spec.activation))
+        i += 2
+    if not head_done:
+        layer = params[f"fc{n_layers - 1}"]
+        if cur_idx is not None:
+            plan_params["head"] = {"wp": packing.pack_in_dim(layer["w"],
+                                                             cur_idx),
+                                   "b": layer["b"]}
+            ops.append(OutputHead("head", d_in=cur_idx.shape[1],
+                                  d_in_full=widths[n_layers - 1],
+                                  d_out=widths[n_layers],
+                                  activation=spec.final_activation,
+                                  per_mask=True))
+        else:
+            plan_params["head"] = {"w": layer["w"], "b": layer["b"]}
+            ops.append(OutputHead("head", d_in=widths[n_layers - 1],
+                                  d_out=widths[n_layers],
+                                  activation=spec.final_activation,
+                                  per_mask=False))
+    return PackedPlan(ops=tuple(ops), params=plan_params,
+                      n_masks=model.n_masks)
 
 # ---------------------------------------------------------------------------
 # per-op executor

@@ -77,6 +77,10 @@ class TrafficModel:
     flops: int                 # dense MACs*2 over packed shapes
     weight_loads: int          # paper's load-count metric
 
+    @property
+    def total_bytes(self) -> int:
+        return self.weight_bytes + self.act_bytes
+
 
 def traffic_model(schedule: Schedule, batch: int, n_samples: int,
                   d_in: int, k_hidden: int, d_out: int,

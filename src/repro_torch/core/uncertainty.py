@@ -14,6 +14,8 @@ from typing import Mapping, Sequence
 
 import torch
 
+from repro_torch.kernels.moments import ops as moments_ops
+
 __all__ = ["REL_UNC_EPS", "predictive_moments", "relative_uncertainty",
            "token_posterior", "rmse", "UncertaintyRequirements", "RequirementReport",
            "check_requirements"]
@@ -25,11 +27,19 @@ REL_UNC_EPS = 1e-12
 
 def predictive_moments(samples: torch.Tensor, axis: int = 0
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(mean, std) over the sample axis, two-pass; std uses ddof=0
-    (population), matching the reference Masksembles evaluation."""
-    mean = samples.mean(dim=axis)
-    std = samples.std(dim=axis, correction=0)
-    return mean, std
+    """(mean, std) over the sample axis: fp32 accumulation, the variance
+    centered and two-pass, std with ddof=0 (population), matching the
+    reference Masksembles evaluation.
+
+    Computed by the ``moments`` kernel (``kernels/moments``) on a CUDA
+    tensor and by its plain version on a CPU tensor: the sample axis is
+    moved to the front (a copy unless it is already there) and the other
+    axes are flattened to the kernel's ``[N, B, P]``."""
+    s = samples.movedim(axis, 0).contiguous()
+    rest = s.shape[1:]
+    mean, std = moments_ops.moments(
+        s.reshape(s.shape[0], -1, rest[-1] if rest else 1))
+    return mean.reshape(rest), std.reshape(rest)
 
 
 def relative_uncertainty(samples: torch.Tensor, axis: int = 0,
@@ -45,9 +55,10 @@ def token_posterior(logits: torch.Tensor, n: int
     (mask-major rows) -> (mean log-probs [b, V], relative uncertainty of
     the argmax token [b]), in fp32.
 
-    Shared by the per-op decode step and both prefill forms; the fused
-    decode kernel's Welford epilogue matches it to fp tolerance. n=1
-    degenerates to plain log-probs with zero uncertainty."""
+    Shared by the per-op decode step and both prefill forms (one
+    ``moments`` launch each on the card); the fused decode kernel's Welford
+    epilogue matches it to fp tolerance. n=1 degenerates to plain log-probs
+    with zero uncertainty."""
     logp = torch.log_softmax(logits.float(), -1)
     mean, std = predictive_moments(logp.reshape(n, -1, logp.shape[-1]))
     tok = mean.argmax(-1, keepdim=True)

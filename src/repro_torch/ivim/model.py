@@ -23,6 +23,7 @@ the same thing in the tests.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -38,8 +39,8 @@ from repro_torch.ivim import physics
 Params = dict[str, Any]
 
 __all__ = ["IvimConfig", "PARAM_NAMES", "IvimNet", "init", "params_from_jax",
-           "apply_all_samples", "predict", "fold_bn", "pack_for_serving",
-           "packed_apply"]
+           "apply_all_samples", "predict", "reconstruct", "fold_bn",
+           "pack_for_serving", "packed_apply"]
 
 PARAM_NAMES = ("D", "Dstar", "f", "S0")
 _BN_MOMENTUM = 0.1
@@ -74,6 +75,14 @@ class IvimConfig:
     @property
     def bayesian(self) -> bool:
         return self.n_masks > 0
+
+
+@functools.lru_cache(maxsize=32)
+def _const(values: tuple[float, ...], device: torch.device,
+           dtype: torch.dtype) -> torch.Tensor:
+    # Made once per (values, device, dtype): a host-to-card copy on every
+    # forward would stall each training step.
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _param_dict(leaves: Params) -> nn.ParameterDict:
@@ -162,8 +171,10 @@ class IvimNet(nn.Module):
             h = h * m2
         z = torch.matmul(h, self.enc["w"]) + self.enc["b"][:, None, :]
         sig = torch.sigmoid(z[..., 0])                # [4, B]
-        lo = sig.new_tensor([r[0] for r in cfg.out_ranges])[:, None]
-        hi = sig.new_tensor([r[1] for r in cfg.out_ranges])[:, None]
+        lo = _const(tuple(r[0] for r in cfg.out_ranges), sig.device,
+                    sig.dtype)[:, None]
+        hi = _const(tuple(r[1] for r in cfg.out_ranges), sig.device,
+                    sig.dtype)[:, None]
         return (lo + sig * (hi - lo)).T               # C(.) -> [B, 4]
 
     def forward(self, x: torch.Tensor,
@@ -239,6 +250,13 @@ def predict(model: IvimNet, x: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """(mean [B, 4], std [B, 4]) — prediction + uncertainty (paper §IV)."""
     return uncertainty.predictive_moments(apply_all_samples(model, x))
+
+
+def reconstruct(cfg: IvimConfig, ivim_params: torch.Tensor) -> torch.Tensor:
+    """Eq. (1): normalized signals [..., Nb] from predictions [..., 4]."""
+    d, dstar, f, s0 = (ivim_params[..., i] for i in range(4))
+    b = _const(cfg.b_values, ivim_params.device, ivim_params.dtype)
+    return physics.ivim_signal(b, d, dstar, f, s0)
 
 
 # ---- Phase-3 serving form: compiled by the core mask pipeline --------------

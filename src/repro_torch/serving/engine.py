@@ -7,7 +7,7 @@ runner in fixed-size chunks (the last one zero-padded, so every launch sees
 one shape), and the per-chunk (mean, std) are reassembled. By default the
 runner is the fused whole-plan kernel with its in-kernel moments epilogue
 (one launch per chunk); the per-op executor (one masked_ffn launch per chunk,
-then two-pass moments) is its fallback.
+then one ``moments`` kernel launch over its samples) is its fallback.
 
 LM: ``generate`` is greedy generation; ``serve_uncertain`` is the paper's
 technique at LM scale — every request is evaluated under all N fixed
@@ -51,7 +51,8 @@ def plan_chunk_runner(plan: plan_lib.PackedPlan, *,
     ``fused=True`` requires the whole-plan kernel with the in-kernel moments
     epilogue and surfaces :class:`plan_lib.FusedPlanUnsupported`;
     ``fused=False`` forces the per-op path (one masked_ffn launch per
-    PackedPair, then ``uncertainty.predictive_moments``); ``None`` tries
+    PackedPair, then ``uncertainty.predictive_moments``: one ``moments``
+    kernel launch per chunk on the card); ``None`` tries
     fused and falls back per-op only on ``FusedPlanUnsupported`` — at build
     when the plan has no fused lowering, or at the first call when the
     shared-memory residency guard fires (every chunk has one shape, so the
@@ -105,7 +106,8 @@ def predict_packed(plan: plan_lib.PackedPlan, x: torch.Tensor, *,
     ``chunk`` bounds the resident batch: the voxels stream through one
     runner in ``chunk``-row slices (``scheduler.chunk_bounds``, the last
     slice zero-padded to the chunk shape, pad rows dropped), so each chunk
-    is exactly one fused launch.
+    is exactly one fused launch — or, per-op, one masked_ffn and one
+    ``moments`` launch.
     """
     dev = device_lib.resolve(device)
     plan = plan.to(dev)

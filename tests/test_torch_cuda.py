@@ -13,7 +13,9 @@ for the int8 bodies (the reference's int8 bar: the dequantized weights are
 exact, so only the order of the sums differs); the
 decode kernel's bf16 k/v outputs within one bf16 ulp of the plain version's
 plus 1e-5 of the tensor's largest value (fp32 values that differ by sums
-taken in another order, each rounded to bf16).
+taken in another order, each rounded to bf16). The moments kernel is held
+to the reference's own kernel-vs-ref bar (tests/test_kernels.py: mean rtol
+1e-5 / atol 1e-6, std rtol 1e-4 / atol 1e-5), bf16 to one bf16 ulp.
 """
 
 import dataclasses
@@ -33,6 +35,8 @@ from repro_torch.kernels.fused_plan import ops as fops
 from repro_torch.kernels.fused_plan import ref as fref
 from repro_torch.kernels.masked_ffn import ops as mops
 from repro_torch.kernels.masked_ffn import ref as mref
+from repro_torch.kernels.moments import ops as moops
+from repro_torch.kernels.moments import ref as moref
 from repro_torch.serving import engine, server
 
 TOL_FWD = 1e-4
@@ -703,3 +707,129 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# moments and the design flow
+# ---------------------------------------------------------------------------
+
+MOMENTS_MEAN = dict(rtol=1e-5, atol=1e-6)
+MOMENTS_STD = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 4096, 4),          # the per-op IVIM chunk
+    (4, 8, 151936),        # the qwen2-1.5b posterior
+    (4, 8, 256000),        # the recurrentgemma-2b posterior
+    (64, 65536, 4),        # the reference's N ceiling
+    (3, 4097, 5),          # ragged B*P
+    (1, 7, 3), (9, 33, 7), (17, 5, 129)])   # N = 1 and N beyond kCache
+def test_moments_kernel_matches_plain(cuda, shape):
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(0)) \
+        .to(cuda)
+    before = moops.moments.launches
+    mean, std = moops.moments(x)
+    assert moops.moments.launches == before + 1
+    want = moref.moments_ref(x)
+    assert mean.shape == std.shape == shape[1:]
+    torch.testing.assert_close(mean, want[0], **MOMENTS_MEAN)
+    torch.testing.assert_close(std, want[1], **MOMENTS_STD)
+
+
+def test_moments_kernel_deterministic_and_shape_free(cuda):
+    """Each output element depends on its own N samples alone, summed in
+    one order: a launch repeats bit for bit, and the first rows of a
+    longer batch equal a shorter batch's — what the bucketed-vs-exact
+    prefill's bitwise posterior needs of the kernel."""
+    x = torch.randn((4, 8, 1000), generator=torch.Generator().manual_seed(3)
+                    ).to(cuda)
+    a, b = moops.moments(x), moops.moments(x)
+    part = moops.moments(x[:, :5].contiguous())
+    for full, again, short in zip(a, b, part):
+        assert torch.equal(full, again)
+        assert torch.equal(full[:5], short)
+
+
+def test_moments_kernel_bf16_and_constant(cuda):
+    x = torch.randn((8, 4096, 4), generator=torch.Generator().manual_seed(1)
+                    ).to(cuda, torch.bfloat16)
+    got, want = moops.moments(x), moref.moments_ref(x)
+    for g, w in zip(got, want):           # one bf16 ulp of the plain value
+        assert g.dtype == torch.bfloat16
+        g, w = g.float(), w.float()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30)))
+                         - 7)
+        assert bool(((g - w).abs() <= ulp).all()), float((g - w).abs().max())
+    for value in (1.0, -0.375):           # sums exact in fp32
+        mean, std = moops.moments(torch.full((8, 16, 4), value, device=cuda))
+        assert bool((std == 0).all()) and bool((mean == value).all())
+
+
+def test_moments_refuses_bad_operands(cuda):
+    x = torch.randn(4, 6, 5, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        moops.moments(x.transpose(1, 2))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        moops.moments(x.double())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        moops.moments(x.half())
+    with pytest.raises(ValueError, match=r"\[N, B, P\]"):
+        moops.moments(x[0])
+    with pytest.raises(ValueError, match="empty"):
+        moops.moments(x[:, :0])
+
+
+def test_predictive_moments_on_card_launches_moments(cuda):
+    from repro_torch.core import uncertainty as unc
+    gen = torch.Generator().manual_seed(2)
+    for shape, axis in (((8, 33, 4), 0), ((33, 8, 4), 1), ((6, 5), -1)):
+        s = torch.randn(shape, generator=gen)
+        before = moops.moments.launches
+        got = unc.predictive_moments(s.to(cuda), axis=axis)
+        assert moops.moments.launches == before + 1
+        want = unc.predictive_moments(s, axis=axis)
+        torch.testing.assert_close(got[0].cpu(), want[0], **MOMENTS_MEAN)
+        torch.testing.assert_close(got[1].cpu(), want[1], **MOMENTS_STD)
+    logits = torch.randn((4 * 3, 97), generator=gen) * 3
+    before = moops.moments.launches
+    mean, rel = unc.token_posterior(logits.to(cuda), 4)
+    assert moops.moments.launches == before + 1
+    wmean, wrel = unc.token_posterior(logits, 4)
+    torch.testing.assert_close(mean.cpu(), wmean, **MOMENTS_MEAN)
+    torch.testing.assert_close(rel.cpu(), wrel, rtol=1e-4, atol=1e-6)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One Adam step from identical parameters on the card and on the CPU
+    (1e-5: fp32 products in another order), then a short run on the card.
+    The directions batch-statistics BN hides from the loss — the biases
+    ahead of BN and fc1's row for the b=0 input, 1.0 in every voxel — get
+    float-noise gradients that Adam turns into steps of about lr: those
+    are held to 2 lr."""
+    from repro_torch.ivim import data as ivim_data
+    from repro_torch.ivim import train as ivim_train
+    cfg = ivim_model.IvimConfig(n_masks=4)
+    tcfg = ivim_train.TrainConfig(steps=3, lr=3e-3)
+    x = ivim_data.make_dataset(ivim_data.SyntheticConfig(n_voxels=128),
+                               device="cpu")["signals"]
+    losses = {}
+    models = {}
+    for dev in ("cpu", cuda):
+        model = ivim_model.init(cfg, torch.Generator().manual_seed(0),
+                                device=dev)
+        step, init_opt = ivim_train.make_train_step(cfg, tcfg)
+        losses[str(dev)] = step(model, init_opt(model), x.to(dev)).item()
+        models[str(dev)] = model
+    np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-5)
+    null = {"fc1.b": (...,), "fc2.b": (...,), "fc1.w": (slice(None), 0)}
+    for (name, p), q in zip(models["cpu"].named_parameters(),
+                            models[str(cuda)].parameters()):
+        got, want = q.detach().cpu().clone(), p.detach().clone()
+        if name in null:
+            assert float((got[null[name]] - want[null[name]]).abs().max()) \
+                <= 2 * tcfg.lr
+            got[null[name]] = want[null[name]] = 0.0
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5, msg=name)
+    model, hist = ivim_train.train(cfg, tcfg, device=cuda)
+    assert len(hist) == 3 and np.isfinite(hist).all()
+    assert all(p.device.type == "cuda" for p in model.parameters())

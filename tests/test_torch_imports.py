@@ -11,7 +11,10 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.configs import registry
 from repro_torch.core import plan as plan_lib
+from repro_torch.core import transform
+from repro_torch.ivim import evaluate as ivim_eval
 from repro_torch.ivim import model as ivim_model
+from repro_torch.ivim import train as ivim_train
 from repro_torch.models import model as lm_model
 from repro_torch.serving import engine, server
 
@@ -30,15 +33,17 @@ def test_port_imports_no_jax_and_no_reference():
         "assert not bad, bad\n"
         "assert 'repro_torch.distributed.compression' in names, names\n"
         "for n in ('models.rglru', 'kernels.rglru_scan.ops',\n"
-        "          'kernels.flash_attention.ops'):\n"
+        "          'kernels.flash_attention.ops', 'kernels.moments.ops',\n"
+        "          'kernels.moments.ref', 'core.transform',\n"
+        "          'core.latency_model', 'ivim.train', 'ivim.evaluate'):\n"
         "    assert 'repro_torch.' + n in names, names\n"
-        "assert len(names) >= 42, names\n"
+        "assert len(names) >= 49, names\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(SRC),
                          capture_output=True, text=True, timeout=120,
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 42
+    assert int(out.stdout.strip()) >= 49
 
 
 def _tiny_plan():
@@ -53,6 +58,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     instead of running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     plan, x = _tiny_plan()
+    small = ivim_model.init(ivim_model.IvimConfig(n_masks=2),
+                            torch.Generator().manual_seed(0), device="cpu")
     cfg = registry.smoke_config("qwen2-1.5b", n_layers=1)
     lm = lm_model.build_model(cfg)
     toks = torch.zeros((1, 3), dtype=torch.int32)
@@ -69,6 +76,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: plan_lib.execute_fused(plan, x, moments=True),
         lambda: ivim_model.init(ivim_model.IvimConfig(),
                                 torch.Generator().manual_seed(0)),
+        lambda: ivim_train.train(ivim_model.IvimConfig(),
+                                 ivim_train.TrainConfig(steps=1)),
+        lambda: ivim_eval.evaluate_snr_sweep(small, n_voxels=8),
+        lambda: transform.convert(transform.MlpSpec((3, 4, 2), (1,)), 2,
+                                  2.0, torch.Generator().manual_seed(0)),
         lambda: device_lib.resolve(None),
         lambda: device_lib.resolve("cuda"),
     ]
