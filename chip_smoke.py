@@ -37,6 +37,9 @@ and read just after:
 Phases, each on its own line; any failure raises and exits nonzero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions, and the kernels' build (nvcc, from csrc/) with its time;
+     then ``[host_path]``: the wrappers' host time a call, part by part,
+     before and after the trimmed launch path, on the one-element
+     ``moments`` call and the recurrentgemma-2b prefill flash call;
   2. the int8 quantizer on the card bit-equal to the CPU (the dense plan's
      int8 weights and bf16 scales); then kernels vs plain: each kernel, fp32
      and int8 body, against its ref.py version on the card at the main
@@ -44,7 +47,10 @@ Phases, each on its own line; any failure raises and exits nonzero:
      bound from bytes and FLOPs, and the parameter bytes the kernel reads;
      then the moments kernel against its plain version and
      ``torch.std_mean`` (``library_ms``) at the per-op IVIM chunk, the two
-     LM posteriors, N = 64, a ragged shape and in bf16;
+     LM posteriors, N = 64, N = 16, 24, 33 and 65 (every register bucket
+     and the reread past 64), a ragged shape and in bf16, with profiler
+     device times beside the event times; ``predictive_moments`` on fp16
+     and empty inputs against the CPU's;
   3. IVIM main path: the volume served fused and per-op, and through the
      plain fused_moments_ref, each held to the unpacked model at 2e-4, with
      the launch counts of each leg asserted (per-op: one masked_ffn and one
@@ -73,8 +79,10 @@ Phases, each on its own line; any failure raises and exits nonzero:
      moments launches (one a posterior) are printed;
   6. the hybrid kernels vs plain on the card: ``rglru_scan`` at the served,
      a long and a ragged shape, ``flash_attention`` at the recurrentgemma-2b
-     and qwen2-1.5b prefill shapes (bf16; fp32; full attention; a ragged
-     shape), with ``scaled_dot_product_attention`` timed beside it;
+     and qwen2-1.5b prefill shapes (bf16 on the tensor cores; fp32 on the
+     CUDA cores; full attention; a ragged shape), with
+     ``scaled_dot_product_attention`` timed beside it, in events and in
+     profiler device time;
   7. the hybrid main path: ``serve_uncertain`` on recurrentgemma-2b with the
      launches of the call asserted (18 rglru_scan, 8 flash_attention, no
      fused_decode), ms a decode step, prefill ms, state and cache bytes;
@@ -129,6 +137,7 @@ TOL_KV_SCALE = 1e-5
 # reference's posterior bar (rtol 1e-4 at smoke size) widened for depth.
 TOL_LM_UNC = 1e-3
 LM_FLASH_LAUNCHES = 28          # one a layer of qwen2-1.5b's prefill
+HOST_CALLS = 1000               # calls a host-path part is timed over
 HY_ARCH, HY_PATH_LAYERS = "recurrentgemma-2b", 5
 # moments vs its plain version: the reference's own kernel-vs-ref bar
 # (tests/test_kernels.py); bf16 within one bf16 ulp of the plain value
@@ -177,6 +186,24 @@ def _tree(fn, tree):
     if isinstance(tree, (list, tuple)):
         return [_tree(fn, v) for v in tree]
     return fn(tree)
+
+
+def device_ms(fn, reps: int = 10):
+    """The card's own time a call (its kernels' profiler events), apart from
+    the host's: a back-to-back event timing of a small call measures
+    whichever of the two is longer."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    prof = torch.profiler
+    with prof.profile(activities=[prof.ProfilerActivity.CPU,
+                                  prof.ProfilerActivity.CUDA]) as tr:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in tr.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3 if us else "not measured"
 
 
 def _within_bf16_ulp(got, want) -> float:
@@ -565,7 +592,10 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
                                                             causal=causal)),
                "plain_ms": time_ms(lambda: fa_ref.flash_attention_ref(
                    q, k, v, causal=causal), 5),
-               "library_ms": time_ms(lib)}
+               "library_ms": time_ms(lib),
+               "device_ms": device_ms(lambda: fa_ops.flash_attention(
+                   q, k, v, causal=causal)),
+               "library_device_ms": device_ms(lib)}
         rec["bound_ms"], rec["bound_by"] = bound(
             4 * b * h * pairs * dh, nbytes(q, k, v, got),
             BF16_PEAK if dt == torch.bfloat16 else FP32_PEAK)
@@ -732,8 +762,11 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
          "ms": main_f["ms"], "kernel_ms": main_f["ms"],
          "plain_ms": main_f["plain_ms"], "bound_ms": main_f["bound_ms"],
          "bound_by": main_f["bound_by"], "library_ms": main_f["library_ms"],
+         "device_ms": main_f["device_ms"],
+         "library_device_ms": main_f["library_device_ms"],
          **{f"{n}_{k}": r[k] for n, r in flash.items() if n != "rg_prefill"
-            for k in ("ms", "library_ms", "bound_ms")}}]
+            for k in ("ms", "library_ms", "bound_ms", "device_ms",
+                      "library_device_ms")}}]
 
 
 def moments_phase(dev, time_ms, bound, nbytes) -> dict:
@@ -745,20 +778,6 @@ def moments_phase(dev, time_ms, bound, nbytes) -> dict:
     from repro_torch.kernels.moments import ops as mo_ops
     from repro_torch.kernels.moments import ref as mo_ref
 
-    def device_ms(fn, reps: int = 10):
-        """The card's own time a call (its kernels' profiler events), apart
-        from the host's: a back-to-back event timing of a small call
-        measures whichever of the two is longer."""
-        prof = torch.profiler
-        with prof.profile(activities=[prof.ProfilerActivity.CPU,
-                                      prof.ProfilerActivity.CUDA]) as tr:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in tr.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        return us / reps / 1e3 if us else "not measured"
-
     gen = torch.Generator(dev).manual_seed(6)
     recs = {}
     for name, shape, dt in (
@@ -766,6 +785,10 @@ def moments_phase(dev, time_ms, bound, nbytes) -> dict:
             ("qwen2_posterior", (4, LM_BATCH, 151936), torch.float32),
             ("rg_posterior", (4, LM_BATCH, 256000), torch.float32),
             ("long", (64, 65536, 4), torch.float32),    # the reference's N cap
+            ("n16", (16, 65536, 4), torch.float32),     # register bucket 16
+            ("n24", (24, 65536, 4), torch.float32),     # bucket 32, 8 idle
+            ("n33", (33, 65536, 4), torch.float32),     # bucket 64, 31 idle
+            ("n65", (65, 65536, 4), torch.float32),     # past 64: the reread
             ("ragged", (3, 4097, 5), torch.float32),
             ("bf16", (8, CHUNK, 4), torch.bfloat16)):
         x = torch.randn(shape, generator=gen, device=dev).to(dt)
@@ -787,6 +810,7 @@ def moments_phase(dev, time_ms, bound, nbytes) -> dict:
             return torch.std_mean(x, dim=0, correction=0)
 
         rec = {"shape": name, "dims": list(shape), "dtype": dt,
+               "register_bucket": mo_ops.register_bucket(shape[0]),
                "max_abs_err": max(float((g.float() - w.float()).abs().max())
                                   for g, w in zip(got, want)),
                "library_max_abs_err": max(
@@ -810,6 +834,28 @@ def moments_phase(dev, time_ms, bound, nbytes) -> dict:
         if not (bool((std == 0).all()) and bool((mean == value).all())):
             raise AssertionError(f"moments of the constant {value}: std "
                                  f"{float(std.abs().max())}")
+    # predictive_moments: fp16 widened to the fp32 kernel and cast back,
+    # empty inputs answered without a launch, as on the CPU
+    from repro_torch.core import uncertainty as unc
+    x16 = torch.randn((8, 33, 4), generator=gen, device=dev).half()
+    for shape, x in (("fp16", x16), ("empty_samples", x16[:0]),
+                     ("empty_rest", x16[:, :, :0])):
+        before = mo_ops.moments.launches
+        got = unc.predictive_moments(x)
+        launched = mo_ops.moments.launches - before
+        want = unc.predictive_moments(x.cpu())
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or g.shape != w.shape or not torch.allclose(
+                    g.cpu().float(), w.float(), rtol=2.0 ** -10, atol=0,
+                    equal_nan=True):
+                raise AssertionError(f"predictive_moments {shape} on the "
+                                     f"card: {g.dtype} {tuple(g.shape)}")
+        if launched != (0 if x.numel() == 0 else 1):
+            raise AssertionError(f"predictive_moments {shape}: {launched} "
+                                 f"launches")
+        _phase("moments_kernel", shape=f"predictive_{shape}",
+               dims=list(x.shape), out_dims=list(got[0].shape),
+               dtype=got[0].dtype, launches=launched, matches_cpu=True)
     tiny = torch.ones((1, 1, 1), device=dev)     # one element: the fill
     _phase("moments_kernel", shape="constant", std_exactly_zero=True,
            one_element_ms=time_ms(lambda: mo_ops.moments(tiny), 200),
@@ -817,6 +863,106 @@ def moments_phase(dev, time_ms, bound, nbytes) -> dict:
                                            50))
     torch.cuda.empty_cache()
     return recs
+
+
+def host_path_phase(dev) -> dict:
+    """Phase 1b: the wrappers' host path, part by part, on the one-element
+    ``moments`` call and the ``rg_prefill`` flash call: each part (and the
+    whole wrapper) timed with ``time.perf_counter`` over HOST_CALLS calls,
+    in batches of 100 with a synchronize between batches (outside the
+    clock, so the launch queue never fills). "before" is the wrapper as it
+    was (C signature set every call, device context entered every call,
+    two output allocations for ``moments``), rebuilt here on its own handle
+    of the library; "after" is the wrapper the port ships. Returns the
+    microseconds by call and part."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.moments import ops as mo_ops
+
+    def host_us(fn, batch: int = 100) -> float:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        total = 0.0
+        for _ in range(HOST_CALLS // batch):
+            t = time.perf_counter()
+            for _ in range(batch):
+                fn()
+            total += time.perf_counter() - t
+            torch.cuda.synchronize()
+        return 1e6 * total / HOST_CALLS
+
+    def enter(ctx):
+        with ctx:
+            pass
+
+    stream = _build.stream_of(dev)
+    out = {}
+    x = torch.ones((1, 1, 1), device=dev)
+    gen = torch.Generator(dev).manual_seed(7)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               .to(torch.bfloat16) for shape in ((32, 10, LM_PROMPT, 256),
+                                                  (32, 1, LM_PROMPT, 256),
+                                                  (32, 1, LM_PROMPT, 256)))
+    o = torch.empty_like(q)
+    sqrt_dh = math.sqrt(256)
+    cases = {
+        "moments": ("moments", "moments_f32_launch", mo_ops._ARGTYPES,
+                    {"samples": x}, lambda: x.new_empty((2, 1, 1)).unbind(),
+                    lambda: (torch.empty((1, 1), device=dev),
+                             torch.empty((1, 1), device=dev)),
+                    (x.data_ptr(), o.data_ptr(), o.data_ptr() + 4, 1, 1, 8),
+                    lambda: mo_ops.moments(x)),
+        "flash_rg_prefill": (
+            "flash_attention", "flash_attention_bf16_launch",
+            fa_ops._ARGTYPES, {"q": q, "k": k, "v": v},
+            lambda: torch.empty_like(q), lambda: torch.empty_like(q),
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 32, 10,
+             1, LM_PROMPT, LM_PROMPT, 256, sqrt_dh, 1),
+            lambda: fa_ops.flash_attention(q, k, v, causal=True))}
+    for name, (lib_name, entry, argtypes, operands, alloc_after,
+               alloc_before, args, wrapper) in cases.items():
+        bound = _build.bind(lib_name, entry, argtypes)
+        lib = _build.load(lib_name)
+        old_fn = getattr(type(lib)(lib._name), entry)   # its own handle
+        dtypes = {n: t.dtype for n, t in operands.items()}
+
+        def set_argtypes(fn=old_fn, argtypes=argtypes):
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+
+        def before(fn=old_fn, argtypes=argtypes, operands=operands,
+                   dtypes=dtypes, alloc=alloc_before, args=args):
+            d = _build.check_operands(lib_name, dtypes, **operands)
+            alloc()
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            with torch.cuda.device(d):
+                err = fn(*args, ctypes.c_void_p(
+                    torch.cuda.current_stream(d).cuda_stream))
+            _build.check_launch(lib_name, err)
+
+        parts = {
+            "check_operands": lambda: _build.check_operands(
+                lib_name, dtypes, **operands),
+            "alloc_before": alloc_before, "alloc_after": alloc_after,
+            "stream_before": lambda: ctypes.c_void_p(
+                torch.cuda.current_stream(dev).cuda_stream),
+            "stream_of": lambda: _build.stream_of(dev),
+            "device_context": lambda: enter(torch.cuda.device(dev)),
+            "device_guard": lambda: enter(_build.on_device(dev)),
+            "set_argtypes": set_argtypes,
+            "bind": lambda: _build.bind(lib_name, entry, argtypes),
+            "ctypes_call": lambda: bound(*args, stream),
+            "wrapper_before": before, "wrapper_after": wrapper}
+        rec = {f"{part}_us": host_us(fn) for part, fn in parts.items()}
+        _phase("host_path", call=name, calls=HOST_CALLS, **{
+            k: round(v, 3) for k, v in rec.items()})
+        out[name] = rec
+    del q, k, v, o
+    torch.cuda.empty_cache()
+    return out
 
 
 def flow_phases(dev, time_ms, counters) -> dict:
@@ -1032,6 +1178,9 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 _phase("ptxas", source=stem, info=line.strip())
+    # first, while the process is fresh: after the later phases (profiler
+    # runs, gigabytes of allocations) the same calls take longer on the host
+    host = host_path_phase(dev)
 
     def time_ms(fn, reps: int = 20) -> float:
         for _ in range(3):
@@ -1356,8 +1505,11 @@ def main() -> int:
         "int8_per_op_launches": q_launches["per_op"][3],
         "eval_launches": flow["eval_launches"],
         "lm_per_op_launches": decode_rec["moments_per_op_launches"],
+        "host_us_before": host["moments"]["wrapper_before_us"],
+        "host_us_after": host["moments"]["wrapper_after_us"],
         **{f"{n}_{k}": r[k] for n, r in mo_recs.items() if n != "main"
-           for k in ("ms", "library_ms", "bound_ms")}})
+           for k in ("ms", "library_ms", "bound_ms", "device_ms",
+                     "library_device_ms")}})
     line.append(decode_rec)
     line.extend(hybrid_recs)
     print(json.dumps({"kernels": line}), flush=True)

@@ -34,12 +34,20 @@ def predictive_moments(samples: torch.Tensor, axis: int = 0
     Computed by the ``moments`` kernel (``kernels/moments``) on a CUDA
     tensor and by its plain version on a CPU tensor: the sample axis is
     moved to the front (a copy unless it is already there) and the other
-    axes are flattened to the kernel's ``[N, B, P]``."""
-    s = samples.movedim(axis, 0).contiguous()
+    axes are flattened to the kernel's ``[N, B, P]``. fp16 is widened to
+    fp32 for the reduction and the results cast back (the kernel stores
+    fp32 and bf16). As in the reference, an empty sample axis gives NaN
+    over the other axes, and empty other axes give empty results; neither
+    launches anything."""
+    s = samples.movedim(axis, 0)
     rest = s.shape[1:]
+    if s.numel() == 0:
+        out = torch.full(rest, float("nan"), dtype=s.dtype, device=s.device)
+        return out, out.clone()
+    wide = s.float() if s.dtype == torch.float16 else s
     mean, std = moments_ops.moments(
-        s.reshape(s.shape[0], -1, rest[-1] if rest else 1))
-    return mean.reshape(rest), std.reshape(rest)
+        wide.contiguous().reshape(s.shape[0], -1, rest[-1] if rest else 1))
+    return (mean.reshape(rest).to(s.dtype), std.reshape(rest).to(s.dtype))
 
 
 def relative_uncertainty(samples: torch.Tensor, axis: int = 0,

@@ -8,14 +8,19 @@ a stale binary. The build runs at first use — all sources at once, one
 ``nvcc`` each — and nothing here runs at import: the CPU tests import every
 module of the port on machines without a toolkit.
 
-The helpers at the end are shared by the kernel wrappers: operand checks
-(a wrapper raises on what its kernel does not take) and the launch-error
-check (each C entry returns ``cudaGetLastError()``).
+The helpers at the end are shared by the kernel wrappers: each C entry
+bound once with its signature, operand checks (a wrapper raises on what its
+kernel does not take), the current-device guard, the stream, and the
+launch-error check (each C entry returns ``cudaGetLastError()``). They keep
+a launch's host path short: no signature set, no device switch and no
+stream object made per call beyond what the launch needs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -24,8 +29,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "build", "load", "check_operands", "stream_of",
-           "check_launch"]
+__all__ = ["NVCC_FLAGS", "build", "load", "bind", "check_operands",
+           "on_device", "stream_of", "check_launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
@@ -33,6 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_BOUND: dict[tuple[str, str], object] = {}
+_SAME_DEVICE = contextlib.nullcontext()
 
 
 def _nvcc() -> str:
@@ -93,6 +100,18 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def bind(name: str, entry: str, argtypes: list, restype=ctypes.c_int):
+    """The C function ``entry`` of ``lib<name>.so`` with its ``argtypes``
+    and ``restype`` set, resolved on the first call for this (library,
+    entry) and returned from a cache after that."""
+    fn = _BOUND.get((name, entry))
+    if fn is None:
+        fn = getattr(load(name), entry)
+        fn.argtypes, fn.restype = argtypes, restype
+        _BOUND[(name, entry)] = fn
+    return fn
+
+
 def check_operands(kernel: str, dtypes: dict[str, torch.dtype] | None = None,
                    **operands: torch.Tensor) -> torch.device:
     """Raise unless every operand is a contiguous tensor on one CUDA device,
@@ -112,9 +131,29 @@ def check_operands(kernel: str, dtypes: dict[str, torch.dtype] | None = None,
     return devices.pop()
 
 
-def stream_of(device: torch.device) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``device``, as the C entries take it."""
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+@functools.cache
+def _one_device() -> bool:
+    return torch.cuda.device_count() == 1
+
+
+def on_device(device: torch.device):
+    """A context in which ``device`` is the current CUDA device. The C
+    entries launch on the current device (and raise shared-memory limits
+    there), so operands on another card need the switch. With one visible
+    card, or when ``device`` is already current, it is a no-op that costs
+    no device query."""
+    if _one_device() or device.index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(device)
+
+
+def stream_of(device: torch.device) -> int:
+    """PyTorch's current stream on ``device`` as a raw handle, as the C
+    entries take it (a ``c_void_p`` argument). It reads the handle without
+    building a ``torch.cuda.Stream`` object, which
+    ``torch.cuda.current_stream(device).cuda_stream`` would do on every
+    launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_launch(kernel: str, err: int) -> None:

@@ -57,6 +57,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -822,10 +824,8 @@ int launch(Args a, cudaStream_t stream, int* grid_out) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_BYTES);
+  static SmemLimit limit;      // the attribute is set once a device
+  if (err == cudaSuccess) err = limit.raise((const void*)kernel, SMEM_BYTES);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         THREADS, SMEM_BYTES);

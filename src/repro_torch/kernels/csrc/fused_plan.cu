@@ -51,6 +51,8 @@
 
 #include <cstdint>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int kMaxSteps = 32;
@@ -355,8 +357,8 @@ extern "C" int fused_samples_launch(const long long* desc, const float* x, int B
   if (B < 1 || bB < kRT || bB % kRT || ch.n_rows < 1 || ch.n_rows > 65535 ||
       missing_int8_buffers(ch, qparams, scales))
     return (int)cudaErrorInvalidValue;
-  err = (int)cudaFuncSetAttribute(fused_samples_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static SmemLimit limit;                  // the attribute is set once a device
+  err = (int)limit.raise((const void*)fused_samples_kernel, (int)smem);
   if (err) return err;
   const dim3 grid((B + bB - 1) / bB, ch.n_rows);
   fused_samples_kernel<<<grid, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
@@ -373,8 +375,8 @@ extern "C" int fused_moments_launch(const long long* desc, const float* x, int B
   if (err) return err;
   if (B < 1 || bB < kRT || bB % kRT || missing_int8_buffers(ch, qparams, scales))
     return (int)cudaErrorInvalidValue;
-  err = (int)cudaFuncSetAttribute(fused_moments_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static SmemLimit limit;                  // the attribute is set once a device
+  err = (int)limit.raise((const void*)fused_moments_kernel, (int)smem);
   if (err) return err;
   const dim3 grid((B + bB - 1) / bB);
   fused_moments_kernel<<<grid, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(

@@ -19,13 +19,17 @@
 // Design: the TPU kernel holds the whole sample axis of a batch tile in VMEM
 // for its two passes. Here one thread owns one (b, p) element and walks N
 // twice; neighbouring threads own neighbouring elements, so every load of a
-// warp is one coalesced segment of one [B, P] slice. The first kCache samples
-// of a thread stay in registers between the passes (all of them at the
-// served N = 4 and 8), and their loads are issued together; later samples are
-// read again in the second pass, from L1/L2 where they still are. Sums run in
-// sample order n = 0 .. N-1; the squares are accumulated with fmaf. No block
-// divisibility and no lane padding (the reference's ops.py needs both): the
-// ragged tail of B*P is masked, and any N >= 1 is taken.
+// warp is one coalesced segment of one [B, P] slice. The kernel is a
+// template on C, the samples a thread holds in registers (8, 16, 32 or 64;
+// the wrapper picks the smallest C >= N, and 64 beyond that). A thread
+// issues all its min(N, C) loads before its first add, so up to 64 loads
+// of a thread are in flight at once, and for N <= 64 each sample is read
+// from device memory exactly once: both passes run from registers. Past 64
+// samples the rest is read again in the second pass, from L1/L2 where it
+// still is. Sums run in sample order n = 0 .. N-1 and the squares are
+// accumulated with fmaf, whatever C: every bucket gives the same bits. No
+// block divisibility and no lane padding (the reference's ops.py needs
+// both): the ragged tail of B*P is masked, and any N >= 1 is taken.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,37 +37,41 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCache = 8;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-template <typename T>
+template <typename T, int C>
 __global__ void __launch_bounds__(kThreads)
 moments_kernel(const T* __restrict__ x, T* __restrict__ mean_out, T* __restrict__ std_out, int N,
                long long M) {
   const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (e >= M) return;
   const T* xp = x + e;
-  float v[kCache];
+  T raw[C];                                   // every load issued before the first add
+#pragma unroll
+  for (int i = 0; i < C; ++i)
+    if (i < N) raw[i] = xp[(size_t)i * M];
+  float v[C];
   float sum = 0.f;
 #pragma unroll
-  for (int i = 0; i < kCache; ++i) v[i] = i < N ? to_f(xp[(size_t)i * M]) : 0.f;
-#pragma unroll
-  for (int i = 0; i < kCache; ++i)
-    if (i < N) sum += v[i];
-  for (int n = kCache; n < N; ++n) sum += to_f(xp[(size_t)n * M]);
+  for (int i = 0; i < C; ++i)
+    if (i < N) {
+      v[i] = to_f(raw[i]);
+      sum += v[i];
+    }
+  for (int n = C; n < N; ++n) sum += to_f(xp[(size_t)n * M]);
   const float mean = sum / (float)N;
   float ss = 0.f;
 #pragma unroll
-  for (int i = 0; i < kCache; ++i)
+  for (int i = 0; i < C; ++i)
     if (i < N) {
       const float d = v[i] - mean;
       ss = fmaf(d, d, ss);
     }
-  for (int n = kCache; n < N; ++n) {
+  for (int n = C; n < N; ++n) {
     const float d = to_f(xp[(size_t)n * M]) - mean;
     ss = fmaf(d, d, ss);
   }
@@ -72,25 +80,34 @@ moments_kernel(const T* __restrict__ x, T* __restrict__ mean_out, T* __restrict_
 }
 
 template <typename T>
-int launch(const T* x, T* mean, T* std, int N, long long M, void* stream) {
+int launch(const T* x, T* mean, T* std, int N, long long M, int C, void* stream) {
   if (N < 1 || M < 1) return (int)cudaErrorInvalidValue;
   const long long blocks = (M + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  moments_kernel<T><<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, mean, std, N, M);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = (unsigned)blocks;
+  switch (C) {
+    case 8: moments_kernel<T, 8><<<grid, kThreads, 0, s>>>(x, mean, std, N, M); break;
+    case 16: moments_kernel<T, 16><<<grid, kThreads, 0, s>>>(x, mean, std, N, M); break;
+    case 32: moments_kernel<T, 32><<<grid, kThreads, 0, s>>>(x, mean, std, N, M); break;
+    case 64: moments_kernel<T, 64><<<grid, kThreads, 0, s>>>(x, mean, std, N, M); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x [N, M] (M = B*P) -> mean, std [M]. Launches on `stream`; returns
-// cudaGetLastError() (0 on success).
+// x [N, M] (M = B*P) -> mean, std [M], with C samples a thread in registers
+// (8, 16, 32 or 64). Launches on `stream`; returns cudaGetLastError() (0 on
+// success).
 extern "C" int moments_f32_launch(const float* x, float* mean, float* std, int N, long long M,
-                                  void* stream) {
-  return launch<float>(x, mean, std, N, M, stream);
+                                  int C, void* stream) {
+  return launch<float>(x, mean, std, N, M, C, stream);
 }
 
 extern "C" int moments_bf16_launch(const __nv_bfloat16* x, __nv_bfloat16* mean,
-                                   __nv_bfloat16* std, int N, long long M, void* stream) {
-  return launch<__nv_bfloat16>(x, mean, std, N, M, stream);
+                                   __nv_bfloat16* std, int N, long long M, int C,
+                                   void* stream) {
+  return launch<__nv_bfloat16>(x, mean, std, N, M, C, stream);
 }

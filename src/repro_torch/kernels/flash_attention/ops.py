@@ -59,9 +59,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head width {dh} > "
                          f"{MAX_HEAD_DIM}")
     o = torch.empty_like(q)
-    fn = getattr(_build.load("flash_attention"), _ENTRIES[q.dtype])
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    with torch.cuda.device(dev):
+    fn = _build.bind("flash_attention", _ENTRIES[q.dtype], _ARGTYPES)
+    with _build.on_device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b,
                  h, hkv, sq, skv, dh, math.sqrt(dh), int(causal),
                  _build.stream_of(dev))

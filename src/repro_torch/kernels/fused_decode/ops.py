@@ -39,6 +39,8 @@ MAX_HEAD_DIM = 256
 _ACT_CODES = {"identity": 0, "relu": 1, "gelu": 2, "gelu_mlp": 2, "silu": 3,
               "sigmoid": 4, "tanh": 5}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p]
 #: Per-layer pointer table order (csrc enum LP_*).
 _LAYER_SLOTS = ("n1s", "n1b", "wq", "bq", "wk", "bk", "wv", "bv", "wo",
                 "n2s", "n2b", "wg", "wu", "bu", "wd", "bd", "mask",
@@ -258,11 +260,8 @@ def _launch(spec: FusedDecodeSpec, x: torch.Tensor,
         knew.data_ptr(), vnew.data_ptr(), *ws, stamps.data_ptr()],
         dtype=np.int64)
     grid = ctypes.c_int(0)
-    fn = _build.load("fused_decode").fused_decode_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
+    fn = _build.bind("fused_decode", "fused_decode_launch", _ARGTYPES)
+    with _build.on_device(dev):
         err = fn(meta.ctypes.data, tw, tc, _build.stream_of(dev),
                  ctypes.byref(grid))
     _build.check_launch("fused_decode", err)

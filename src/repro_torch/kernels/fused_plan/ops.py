@@ -206,9 +206,8 @@ def fused_samples(fp: FusedParams, x: torch.Tensor) -> torch.Tensor:
     smem = check_residency(spec, BLOCK_B_SAMPLES, moments=False)
     out = torch.empty((spec.n_rows, x.shape[0], spec.d_out),
                       dtype=torch.float32, device=dev)
-    fn = _build.load("fused_plan").fused_samples_launch
-    fn.argtypes, fn.restype = _SAMPLES_ARGTYPES, ctypes.c_int
-    with torch.cuda.device(dev):
+    fn = _build.bind("fused_plan", "fused_samples_launch", _SAMPLES_ARGTYPES)
+    with _build.on_device(dev):
         err = fn(_layout(spec).desc.ctypes.data, x.data_ptr(), x.shape[0],
                  *_param_ptrs(fp), out.data_ptr(), BLOCK_B_SAMPLES, smem,
                  _build.stream_of(dev))
@@ -230,9 +229,8 @@ def fused_moments(fp: FusedParams, x: torch.Tensor
     shape = (x.shape[0], spec.groups * spec.d_out)
     mean = torch.empty(shape, dtype=torch.float32, device=dev)
     std = torch.empty(shape, dtype=torch.float32, device=dev)
-    fn = _build.load("fused_plan").fused_moments_launch
-    fn.argtypes, fn.restype = _MOMENTS_ARGTYPES, ctypes.c_int
-    with torch.cuda.device(dev):
+    fn = _build.bind("fused_plan", "fused_moments_launch", _MOMENTS_ARGTYPES)
+    with _build.on_device(dev):
         err = fn(_layout(spec).desc.ctypes.data, x.data_ptr(), x.shape[0],
                  *_param_ptrs(fp), mean.data_ptr(), std.data_ptr(),
                  BLOCK_B_MOMENTS, smem, _build.stream_of(dev))

@@ -58,18 +58,15 @@ def masked_ffn(x: torch.Tensor, w1p: torch.Tensor, b1p: torch.Tensor,
             + (f", w1s {tuple(w1s.shape)}, w2s {tuple(w2s.shape)}"
                if quant else "") + " do not chain")
     y = torch.empty((n, b, d2), dtype=torch.float32, device=dev)
-    lib = _build.load("masked_ffn")
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         if quant:
-            fn = lib.masked_ffn_q_launch
-            fn.argtypes, fn.restype = _Q_ARGTYPES, ctypes.c_int
+            fn = _build.bind("masked_ffn", "masked_ffn_q_launch", _Q_ARGTYPES)
             err = fn(x.data_ptr(), w1p.data_ptr(), w1s.data_ptr(),
                      b1p.data_ptr(), w2p.data_ptr(), w2s.data_ptr(),
                      b2.data_ptr(), y.data_ptr(), b, d, k, d2, n,
                      _build.stream_of(dev))
         else:
-            fn = lib.masked_ffn_launch
-            fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+            fn = _build.bind("masked_ffn", "masked_ffn_launch", _ARGTYPES)
             err = fn(x.data_ptr(), w1p.data_ptr(), b1p.data_ptr(),
                      w2p.data_ptr(), b2.data_ptr(), y.data_ptr(), b, d, k,
                      d2, n, _build.stream_of(dev))

@@ -15,12 +15,24 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.moments import ref as _ref
 
-__all__ = ["moments"]
+__all__ = ["moments", "register_bucket", "REGISTER_BUCKETS"]
 
+#: Samples a thread of the kernel holds in registers (a template instance
+#: each); samples past the largest are read again in the second pass.
+REGISTER_BUCKETS = (8, 16, 32, 64)
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
-                                     ctypes.c_void_p]
+                                     ctypes.c_int, ctypes.c_void_p]
 _ENTRIES = {torch.float32: "moments_f32_launch",
             torch.bfloat16: "moments_bf16_launch"}
+
+
+def register_bucket(n: int) -> int:
+    """The kernel instance for N samples: the smallest bucket that holds
+    all N, else the largest."""
+    for c in REGISTER_BUCKETS:
+        if c >= n:
+            return c
+    return REGISTER_BUCKETS[-1]
 
 
 def moments(samples: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -40,15 +52,16 @@ def moments(samples: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if 0 in samples.shape:
         raise ValueError(f"moments: samples {tuple(samples.shape)} are empty")
     n, b, p = samples.shape
-    mean = torch.empty((b, p), dtype=samples.dtype, device=dev)
-    std = torch.empty_like(mean)
-    fn = getattr(_build.load("moments"), _ENTRIES[samples.dtype])
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    with torch.cuda.device(dev):
-        err = fn(samples.data_ptr(), mean.data_ptr(), std.data_ptr(), n,
-                 b * p, _build.stream_of(dev))
+    out = samples.new_empty((2, b, p))                   # mean, std
+    mean_ptr = out.data_ptr()
+    std_ptr = mean_ptr + b * p * out.element_size()
+    fn = _build.bind("moments", _ENTRIES[samples.dtype], _ARGTYPES)
+    with _build.on_device(dev):
+        err = fn(samples.data_ptr(), mean_ptr, std_ptr, n, b * p,
+                 register_bucket(n), _build.stream_of(dev))
     _build.check_launch("moments", err)
     moments.launches += 1
+    mean, std = out.unbind()
     return mean, std
 
 

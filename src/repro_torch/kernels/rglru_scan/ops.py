@@ -30,9 +30,8 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          f"{tuple(b.shape)} must be one non-empty [B, S, W]")
     bsz, s, w = a.shape
     h = torch.empty_like(a)
-    fn = _build.load("rglru_scan").rglru_scan_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    with torch.cuda.device(dev):
+    fn = _build.bind("rglru_scan", "rglru_scan_launch", _ARGTYPES)
+    with _build.on_device(dev):
         err = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), bsz, s, w,
                  _build.stream_of(dev))
     _build.check_launch("rglru_scan", err)

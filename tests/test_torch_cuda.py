@@ -448,16 +448,12 @@ def test_int8_launches_receive_int8_operands(cuda, monkeypatch):
     no wrapper widens an int8 operand (the fp32 buffer of a fused int8
     chain holds its biases only)."""
     calls: list = []
-    real_load = _build.load
+    real_bind = _build.bind
 
-    class Lib:
-        def __init__(self, name):
-            self._lib = real_load(name)
+    def bind(name, entry, argtypes):
+        return _Recorder(real_bind(name, entry, argtypes), calls)
 
-        def __getattr__(self, entry):
-            return _Recorder(getattr(self._lib, entry), calls)
-
-    monkeypatch.setattr(_build, "load", Lib)
+    monkeypatch.setattr(_build, "bind", bind)
     x, q1, b1, q2, b2, s1, s2 = _int8_pair(torch.Generator().manual_seed(2),
                                            64, 104, 52, 52, 4, cuda)
     mops.masked_ffn(x, q1, b1, q2, b2, s1, s2)
@@ -623,7 +619,9 @@ def test_flash_attention_kernel_matches_plain(cuda, dh, dtype, causal):
     (32, 12, 2, 128, 128, True),      # qwen2-1.5b prefill
     (2, 8, 1, 1100, 64, True),        # past the plain version's 1024 chunk
     (3, 4, 4, 1, 32, True),           # one position
-    (2, 4, 1, 70, 128, False)])       # full attention, and Skv != Sq
+    (2, 4, 1, 70, 128, False),        # full attention, and Skv != Sq
+    (2, 4, 1, 191, 256, True),        # dh 256, Sq = 64 k - 1: ragged q tile,
+    (1, 2, 2, 257, 256, True)])       # ... and 64 k + 1: a one-row q tile
 def test_flash_attention_kernel_shapes(cuda, case):
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention import ref as far
@@ -736,6 +734,20 @@ def test_moments_kernel_matches_plain(cuda, shape):
     torch.testing.assert_close(std, want[1], **MOMENTS_STD)
 
 
+@pytest.mark.parametrize("n", (1, 7, 8, 9, 16, 17, 33, 64, 65, 200))
+def test_moments_kernel_every_register_bucket(cuda, n):
+    """Every register bucket (8, 16, 32, 64), full and part-filled, and
+    the samples past 64 that the second pass reads again."""
+    x = torch.randn((n, 37, 5), generator=torch.Generator().manual_seed(n)) \
+        .to(cuda)
+    before = moops.moments.launches
+    mean, std = moops.moments(x)
+    assert moops.moments.launches == before + 1
+    want = moref.moments_ref(x)
+    torch.testing.assert_close(mean, want[0], **MOMENTS_MEAN)
+    torch.testing.assert_close(std, want[1], **MOMENTS_STD)
+
+
 def test_moments_kernel_deterministic_and_shape_free(cuda):
     """Each output element depends on its own N samples alone, summed in
     one order: a launch repeats bit for bit, and the first rows of a
@@ -797,6 +809,54 @@ def test_predictive_moments_on_card_launches_moments(cuda):
     wmean, wrel = unc.token_posterior(logits, 4)
     torch.testing.assert_close(mean.cpu(), wmean, **MOMENTS_MEAN)
     torch.testing.assert_close(rel.cpu(), wrel, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,axis", [((0, 3, 4), 0), ((0,), 0),
+                                        ((4, 3, 0), 0), ((8, 33, 4), 0),
+                                        ((5, 6), -1)])
+def test_predictive_moments_on_card_fp16_and_empty(cuda, shape, axis):
+    """fp16 on the card is widened to the fp32 kernel (one launch) and cast
+    back; an empty input launches nothing; both give the CPU's results
+    (NaN for an empty sample axis), fp16 within one fp16 ulp."""
+    from repro_torch.core import uncertainty as unc
+    s = torch.randn(shape, generator=torch.Generator().manual_seed(5)).half()
+    before = moops.moments.launches
+    got = unc.predictive_moments(s.to(cuda), axis=axis)
+    assert moops.moments.launches == before + (1 if s.numel() else 0)
+    want = unc.predictive_moments(s, axis=axis)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float16
+        assert g.shape == w.shape and g.device.type == "cuda"
+        g, w = g.cpu().float(), w.float()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -24)))
+                         - 10)
+        assert bool(((g - w).abs() <= ulp).all() if s.numel() and shape[0]
+                    else torch.equal(g.isnan(), w.isnan()))
+
+
+@pytest.mark.parametrize("wrapper", ("moments", "rglru_scan",
+                                     "flash_attention"))
+def test_wrappers_bind_c_entry_once(cuda, wrapper):
+    """A wrapper's C entry is resolved with its signature once: two calls
+    use the same bound function object, and the second sets no argtypes."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rglru_scan import ops as sops
+    gen = torch.Generator().manual_seed(6)
+    call, lib, entry = {
+        "moments": (lambda: moops.moments(
+            torch.randn((4, 6, 5), generator=gen).to(cuda)),
+            "moments", "moments_f32_launch"),
+        "rglru_scan": (lambda: sops.rglru_scan(*_gates((2, 8, 6), cuda)),
+                       "rglru_scan", "rglru_scan_launch"),
+        "flash_attention": (lambda: fa.flash_attention(
+            *_qkv(1, 2, 1, 9, 16, torch.bfloat16, cuda)),
+            "flash_attention", "flash_attention_bf16_launch")}[wrapper]
+    call()
+    fn = _build._BOUND[(lib, entry)]
+    sig = fn.argtypes
+    call()
+    assert _build._BOUND[(lib, entry)] is fn and fn.argtypes is sig
+    assert _build.bind(lib, entry, list(sig)) is fn
 
 
 def test_train_step_on_card_matches_cpu(cuda):

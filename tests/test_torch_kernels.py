@@ -194,3 +194,26 @@ def test_residency_guard():
     assert t_fops.smem_bytes(wide, 16, True) > t_fops.SMEM_LIMIT
     with pytest.raises(t_fref.FusedPlanUnsupported, match="shared memory"):
         t_fops.check_residency(wide, t_fops.BLOCK_B_MOMENTS, True)
+
+
+def test_bind_resolves_each_entry_once(monkeypatch):
+    """``_build.bind`` sets a C entry's signature when it first resolves it
+    and returns the same function object after that, its signature not set
+    again (here on the C library's ``strlen``, which needs no card)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    loads = []
+
+    def load(name):
+        loads.append(name)
+        return ctypes.CDLL(None)
+
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(_build, "_BOUND", {})
+    fn = _build.bind("c", "strlen", [ctypes.c_char_p], ctypes.c_size_t)
+    sig = fn.argtypes
+    assert fn(b"hopper") == 6
+    again = _build.bind("c", "strlen", [ctypes.c_char_p], ctypes.c_size_t)
+    assert again is fn and fn.argtypes is sig and loads == ["c"]
+    assert fn.restype is ctypes.c_size_t

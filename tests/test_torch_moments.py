@@ -125,3 +125,53 @@ def test_token_posterior_matches_reference(n, b, v):
                                rtol=1e-4, atol=1e-6)
     if n == 1:
         assert bool((rel == 0).all())
+
+
+@pytest.mark.parametrize("shape,axis", [((0, 3, 4), 0), ((0,), 0),
+                                        ((4, 3, 0), 0), ((3, 0, 4), 1)])
+def test_predictive_moments_empty_matches_reference(shape, axis):
+    """An empty sample axis gives NaN over the other axes, empty other axes
+    give empty results: the reference's jnp.mean/jnp.std, without a
+    reshape of an empty tensor and without a launch."""
+    s = np.zeros(shape, np.float32)
+    before = t_mo_ops.moments.launches
+    got = t_unc.predictive_moments(torch.from_numpy(s), axis=axis)
+    assert t_mo_ops.moments.launches == before
+    want = j_unc.predictive_moments(jnp.asarray(s), axis=axis)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and w.dtype == jnp.float32
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))  # NaN == NaN
+
+
+def _within_fp16_ulp(got, want):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -24)))
+                  - 10)
+    assert (np.abs(got - want) <= ulp).all(), np.abs(got - want).max()
+
+
+@pytest.mark.parametrize("shape,axis", [((8, 33, 4), 0), ((5, 6), -1),
+                                        ((4, 7, 3), 1)])
+def test_predictive_moments_fp16_matches_reference(shape, axis):
+    """fp16 samples: widened to fp32 for the reduction, results in fp16,
+    within one fp16 ulp of the reference's (both round an fp32 result)."""
+    s = np.random.default_rng(sum(shape)).normal(size=shape) \
+        .astype(np.float16)
+    got = t_unc.predictive_moments(torch.from_numpy(s), axis=axis)
+    want = j_unc.predictive_moments(jnp.asarray(s), axis=axis)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float16 and w.dtype == jnp.float16
+        assert tuple(g.shape) == w.shape
+        _within_fp16_ulp(g.float().numpy(), np.asarray(w, np.float32))
+
+
+@pytest.mark.parametrize("n,bucket", [(1, 8), (7, 8), (8, 8), (9, 16),
+                                      (16, 16), (17, 32), (33, 64), (64, 64),
+                                      (65, 64), (200, 64)])
+def test_moments_register_bucket(n, bucket):
+    """The kernel instance the wrapper picks: the smallest register bucket
+    that holds all N samples, the largest (64) beyond that."""
+    assert t_mo_ops.register_bucket(n) == bucket
+    assert bucket in t_mo_ops.REGISTER_BUCKETS
