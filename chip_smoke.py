@@ -43,17 +43,26 @@ Phases, each on its own line; any failure raises and exits nonzero:
   2. the int8 quantizer on the card bit-equal to the CPU (the dense plan's
      int8 weights and bf16 scales); then kernels vs plain: each kernel, fp32
      and int8 body, against its ref.py version on the card at the main
-     shapes and at ragged shapes: max abs error, kernel ms, plain ms, the
-     bound from bytes and FLOPs, and the parameter bytes the kernel reads;
-     then the moments kernel against its plain version and
+     shapes and at ragged shapes: max abs error, kernel ms (the IVIM
+     kernels' also as profiler device time: events around a small launch
+     time the host), plain ms, the
+     bound from bytes and FLOPs (the IVIM kernels' at the 3xTF32 rate their
+     products run at), and the parameter bytes the kernel reads;
+     ``masked_ffn`` in both grid orders (``order``: batch_level, the
+     paper's schedule, and sampling_level), asserted bit-equal; the IVIM
+     kernels at the main shape held to fp32-accurate products
+     (``rel_err``, a bar plain TF32 fails); then the
+     moments kernel against its plain version and
      ``torch.std_mean`` (``library_ms``) at the per-op IVIM chunk, the two
      LM posteriors, N = 64, N = 16, 24, 33 and 65 (every register bucket
      and the reread past 64), a ragged shape and in bf16, with profiler
      device times beside the event times; ``predictive_moments`` on fp16
      and empty inputs against the CPU's;
-  3. IVIM main path: the volume served fused and per-op, and through the
-     plain fused_moments_ref, each held to the unpacked model at 2e-4, with
-     the launch counts of each leg asserted (per-op: one masked_ffn and one
+  3. IVIM main path: the volume served through the default entry (the
+     fused kernel, ``engine.fallback_counts`` asserted unmoved), per-op,
+     and through the plain fused_moments_ref, each held to the unpacked
+     model at 2e-4, with the launch counts of each leg asserted (fused: one
+     fused_moments launch a chunk; per-op: one masked_ffn and one
      moments launch a chunk) and voxels/s printed; then at int8: fused (one
      int8 moments launch a chunk) and per-op (one int8 masked_ffn and one
      moments launch a chunk) within 2e-4 of each other and 2e-2 of the
@@ -107,14 +116,23 @@ import time
 from pathlib import Path
 
 #: NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense bf16 on
-#: the tensor cores, HBM3 rate.
+#: the tensor cores, HBM3 rate; fp32 products in 3xTF32 (three dense tf32
+#: products at 495 TFLOP/s each), as the IVIM kernels run them.
 FP32_PEAK = 67e12
 BF16_PEAK = 989e12
+TF32_3X_PEAK = 495e12 / 3
 HBM_BW = 3.35e12
 CHUNK = 4096
 VOLUME = (128, 128, 24)
 TOL_MOMENTS = 2e-4      # the reference's fused-vs-per-op tolerance
 TOL_SAMPLES = 1e-4      # fp32 sums in another order than the batched GEMM
+# The IVIM kernels' products run 3xTF32 on the tensor cores, allowed only
+# at fp32 accuracy: at the dense IVIM chunk their max error over the plain
+# output's largest magnitude must stay below this. 3xTF32 reads <= 2.2e-6
+# there and plain TF32 (one product of rounded operands) 3.4e-4 to 9.2e-4,
+# fp32 and int8 (tools/probe_ivim_kernels.py on an H100); plain TF32 would
+# pass the moments bar of 2e-4 above, not this one.
+TOL_3XTF32_REL = 2e-5
 # int8 bodies vs plain, and int8 fused vs per-op: the reference's int8 bar
 # (tests/test_quantized.py); the dequantized weights are exact in fp32, so
 # only the order of the sums differs
@@ -191,7 +209,8 @@ def _tree(fn, tree):
 def device_ms(fn, reps: int = 10):
     """The card's own time a call (its kernels' profiler events), apart from
     the host's: a back-to-back event timing of a small call measures
-    whichever of the two is longer."""
+    whichever of the two is longer. "not measured" where the trace holds
+    fewer device events than calls (the profiler dropped some)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -201,9 +220,11 @@ def device_ms(fn, reps: int = 10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in tr.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / reps / 1e3 if us else "not measured"
+    spans = [e.time_range.elapsed_us() for e in tr.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if len(spans) < reps or not sum(spans):
+        return "not measured"
+    return sum(spans) / reps / 1e3
 
 
 def _within_bf16_ulp(got, want) -> float:
@@ -1208,6 +1229,17 @@ def main() -> int:
             torch.testing.assert_close(g, w, rtol=tol, atol=tol)
         return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
+    def fp32_products(name: str, got, want) -> float:
+        """Max abs error over the plain output's largest magnitude, held
+        to TOL_3XTF32_REL: the tensor cores' products are fp32-accurate."""
+        rel = max(float((g - w).abs().max() / w.abs().max())
+                  for g, w in zip(got, want))
+        if not rel <= TOL_3XTF32_REL:
+            raise AssertionError(f"{name}: error {rel:.3g} of the plain "
+                                 f"output's magnitude (> {TOL_3XTF32_REL}): "
+                                 f"the products are not fp32-accurate")
+        return rel
+
     # ---- the dense model and its plan (shared by phases 2 and 3) ----------
     cfg = ivim_model.IvimConfig(b_values=physics.DENSE_B_VALUES, n_masks=8,
                                 scale=2.0)
@@ -1274,23 +1306,39 @@ def main() -> int:
         args = pair_case(p, x, quant)
         n, d, k = args[1].shape
         d2 = args[3].shape[-1]
-        err = max_err([mffn_ops.masked_ffn(*args)],
-                      [mffn_ref.masked_ffn_ref(*args)],
-                      TOL_INT8 if quant else TOL_SAMPLES)
         flops = 2 * n * x.shape[0] * (d * k + k * d2)
         w_bytes = nbytes(*args[1:])
         moved = nbytes(x) + w_bytes + 4 * n * x.shape[0] * d2
-        rec = {"name": "masked_ffn" + sfx, "route": "cuda",
-               "source": "src/repro_torch/kernels/csrc/masked_ffn.cu",
-               "replaces": "src/repro/kernels/masked_ffn/kernel.py:60"
-                           " (_ffn_kernel_q, pallas_call :140)" if quant
-                           else "src/repro/kernels/masked_ffn/kernel.py:79",
-               "shape": shape_name, "max_abs_err": err,
-               "ms": time_ms(lambda: mffn_ops.masked_ffn(*args)),
-               "plain_ms": time_ms(lambda: mffn_ref.masked_ffn_ref(*args)),
-               "weight_bytes": w_bytes}
-        rec["bound_ms"], rec["bound_by"] = bound(flops, moved)
-        kernels.setdefault(rec["name"], []).append(rec)
+        plain_ms = time_ms(lambda: mffn_ref.masked_ffn_ref(*args))
+        y_plain = mffn_ref.masked_ffn_ref(*args)
+        # the paper's batch-level grid order and the sampling-level one:
+        # one block body, so the two must agree bit for bit
+        ys = {}
+        for order, major in (("batch_level", True), ("sampling_level", False)):
+            ys[order] = mffn_ops.masked_ffn(*args, sample_major=major)
+            rec = {"name": "masked_ffn" + sfx, "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/masked_ffn.cu",
+                   "replaces": "src/repro/kernels/masked_ffn/kernel.py:60"
+                               " (_ffn_kernel_q, pallas_call :140)" if quant
+                               else "src/repro/kernels/masked_ffn/kernel.py:79",
+                   "shape": shape_name, "order": order,
+                   "max_abs_err": max_err(
+                       [ys[order]], [y_plain],
+                       TOL_INT8 if quant else TOL_SAMPLES),
+                   "ms": time_ms(lambda m=major: mffn_ops.masked_ffn(
+                       *args, sample_major=m)),
+                   "device_ms": device_ms(lambda m=major: mffn_ops.masked_ffn(
+                       *args, sample_major=m)),
+                   "plain_ms": plain_ms, "weight_bytes": w_bytes}
+            if shape_name == "main":
+                rec["rel_err"] = fp32_products(rec["name"], [ys[order]],
+                                               [y_plain])
+            rec["bound_ms"], rec["bound_by"] = bound(flops, moved,
+                                                     TF32_3X_PEAK)
+            kernels.setdefault(rec["name"], []).append(rec)
+        if not torch.equal(ys["batch_level"], ys["sampling_level"]):
+            raise AssertionError(f"masked_ffn{sfx} {shape_name}: the two grid "
+                                 f"orders differ")
 
         pp = p.with_precision(int8) if quant else p
         spec, params = plan_lib.lower_fused(pp)
@@ -1312,20 +1360,24 @@ def main() -> int:
              TOL_INT8 if quant else TOL_MOMENTS,
              2 * 4 * b * spec.groups * spec.d_out))
         for name, replaces, run, plain, tol, out_bytes in cases:
+            got, want = run(), plain()
             rec = {"name": name + sfx, "route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/fused_plan.cu",
                    "replaces": replaces, "shape": shape_name,
-                   "max_abs_err": max_err(run(), plain(), tol),
-                   "ms": time_ms(run), "plain_ms": time_ms(plain),
-                   "weight_bytes": fp.nbytes}
+                   "max_abs_err": max_err(got, want, tol),
+                   "ms": time_ms(run), "device_ms": device_ms(run),
+                   "plain_ms": time_ms(plain), "weight_bytes": fp.nbytes}
+            if shape_name == "main":
+                rec["rel_err"] = fp32_products(rec["name"], got, want)
             rec["bound_ms"], rec["bound_by"] = bound(
-                flops, nbytes(x) + fp.nbytes + out_bytes)
+                flops, nbytes(x) + fp.nbytes + out_bytes, TF32_3X_PEAK)
             kernels.setdefault(rec["name"], []).append(rec)
     for recs in kernels.values():
         for rec in recs:
             _phase("kernel", **{k: rec[k] for k in (
-                "name", "shape", "max_abs_err", "ms", "plain_ms",
-                "bound_ms", "bound_by", "weight_bytes")})
+                "name", "shape", "order", "max_abs_err", "rel_err", "ms",
+                "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "weight_bytes") if k in rec})
     mo_recs = moments_phase(dev, time_ms, bound, nbytes)
 
     # ---- phase 3: the main path --------------------------------------------
@@ -1368,9 +1420,10 @@ def main() -> int:
                 torch.cat(stds).reshape(*VOLUME, 4))
 
     n_chunks = -(-n_vox // CHUNK)
-    legs = {
+    fallbacks = dict(engine.fallback_counts)
+    legs = {      # fused: the default entry, which falls back on refusal
         "fused": (lambda: engine.predict_volume(
-            plan, volume, chunk=CHUNK, fused=True, device=dev),
+            plan, volume, chunk=CHUNK, device=dev),
             (0, 0, n_chunks, 0)),
         "per_op": (lambda: engine.predict_volume(
             plan, volume, chunk=CHUNK, fused=False, device=dev),
@@ -1407,7 +1460,7 @@ def main() -> int:
     qplan = plan.with_precision(int8)
     q_legs = {
         "fused": (lambda: engine.predict_volume(
-            qplan, volume, chunk=CHUNK, fused=True, device=dev),
+            qplan, volume, chunk=CHUNK, device=dev),
             (0, 0, n_chunks, 0)),
         "per_op": (lambda: engine.predict_volume(
             qplan, volume, chunk=CHUNK, fused=False, device=dev),
@@ -1430,6 +1483,9 @@ def main() -> int:
                max_abs_err_vs_fp32=err, launches=counts,
                int8_launches=int8_counts())
         q_out[leg], q_launches[leg] = (mean, std), counts
+    if dict(engine.fallback_counts) != fallbacks:
+        raise AssertionError(f"the IVIM plans fell back to the per-op path: "
+                             f"{dict(engine.fallback_counts)}")
     fused_vs_per_op = max_err(q_out["fused"], q_out["per_op"], TOL_INT8)
     fused_vs_plain = max_err(q_out["fused"], q_out["plain"], TOL_INT8)
     fp32_bytes = fp_ops.pack(*plan_lib.lower_fused(plan)).flat.numel() * 4
@@ -1479,17 +1535,23 @@ def main() -> int:
                      "fused_plan_moments_int8": q_launches["fused"][2]}
     line = []
     for name, recs in kernels.items():
-        main = next(r for r in recs if r["shape"] == "main")
+        main = next(r for r in recs if r["shape"] == "main"
+                    and r.get("order", "batch_level") == "batch_level")
+        orders = {f"{r['order']}_{k}": r[k] for r in recs
+                  if r.get("order") and r["shape"] == "main"
+                  for k in ("ms", "max_abs_err")}
         line.append({
             "name": name, "route": "cuda", "source": main["source"],
             "replaces": main["replaces"], "launches": main_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": main["ms"], "kernel_ms": main["ms"],
+            "device_ms": main["device_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
             "weight_bytes": main["weight_bytes"],
-            "ragged_ms": next(r["ms"] for r in recs
-                              if r["shape"] == "ragged")})
+            **{f"ragged_{k}": next(r[k] for r in recs
+                                   if r["shape"] == "ragged")
+               for k in ("ms", "device_ms")}, **orders})
     mo = mo_recs["main"]
     line.append({
         "name": "moments", "route": "cuda",

@@ -500,6 +500,98 @@ def test_int8_launch_errors_raise(cuda):
         mops.masked_ffn(args[0], args[1], args[2].float(), *args[3:])
 
 
+def _ffn_args(quant, shape, seed, device):
+    if quant:
+        return _int8_pair(torch.Generator().manual_seed(seed), *shape, device)
+    b, d, k, d2, n = shape
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(_rand(gen, *s).to(device) for s in
+                 ((b, d), (n, d, k), (n, k), (n, k, d2), (d2,)))
+
+
+@pytest.mark.parametrize("quant", (False, True))
+def test_masked_ffn_orders_bit_equal(cuda, quant):
+    """The batch-level and sampling-level grid orders run one block body:
+    bit-equal at the dense IVIM pair, each within its bar of the plain
+    version."""
+    args = _ffn_args(quant, (4096, 104, 52, 52, 32), 7, cuda)
+    before = (mops.masked_ffn.launches, mops.masked_ffn.int8_launches)
+    batch_level = mops.masked_ffn(*args)
+    sampling_level = mops.masked_ffn(*args, sample_major=False)
+    assert (mops.masked_ffn.launches, mops.masked_ffn.int8_launches) == \
+        (before[0] + 2, before[1] + 2 * quant)
+    assert torch.equal(batch_level, sampling_level)
+    tol = TOL_INT8 if quant else TOL_FWD
+    torch.testing.assert_close(batch_level, mref.masked_ffn_ref(*args),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("sample_major", (True, False))
+@pytest.mark.parametrize("quant", (False, True))
+@pytest.mark.parametrize("shape", [
+    (100, 13, 7, 5, 3),           # B % T != 0; K and D2 not multiples of 4
+    (129, 104, 52, 1, 2),         # one output column; B just past 2 tiles
+    (63, 11, 6, 6, 4),            # B < T at the clinical width (int8 rows
+    #                               at offsets that are not 4-aligned)
+    (300, 130, 66, 67, 2)])       # D, K and D2 one past their chunks
+def test_masked_ffn_tile_edges(cuda, shape, quant, sample_major):
+    args = _ffn_args(quant, shape, 8, cuda)
+    before = (mops.masked_ffn.launches, mops.masked_ffn.int8_launches)
+    got = mops.masked_ffn(*args, sample_major=sample_major)
+    assert (mops.masked_ffn.launches, mops.masked_ffn.int8_launches) == \
+        (before[0] + 1, before[1] + quant)
+    tol = TOL_INT8 if quant else TOL_FWD
+    torch.testing.assert_close(got, mref.masked_ffn_ref(*args), rtol=tol,
+                               atol=tol)
+
+
+EDGE_SPECS = {
+    # widths that are not multiples of 4 and a 2-column (split-K) head
+    "ragged_widths": fref.FusedSpec(
+        (S("dense", "relu", per_sample=True, sample_bias=True, d_in=13,
+           d_out=7),
+         S("dense", "tanh", per_sample=True, shared_bias=True, d_in=7,
+           d_out=5),
+         S("dense", "sigmoid", per_sample=True, d_in=5, d_out=2)),
+        9, 3, 3, 13, 2),
+    # d_out 100: an 8-voxel moments tile (2 voxels a thread)
+    "wide_out": fref.FusedSpec(
+        (S("dense", "relu", per_sample=True, sample_bias=True, d_in=6,
+           d_out=100),), 2, 2, 1, 6, 100),
+    # a 66 KB row slot beside three 128-row tiles: one block an SM
+    "wide_rows": fref.FusedSpec(
+        (S("dense", "relu", per_sample=True, d_in=128, d_out=128),
+         S("dense", "sigmoid", per_sample=True, sample_bias=True, d_in=128,
+           d_out=1)), 3, 3, 1, 128, 1),
+}
+
+
+@pytest.mark.parametrize("quant", (False, True))
+@pytest.mark.parametrize("batch", (100, 129))
+@pytest.mark.parametrize("name", sorted(EDGE_SPECS))
+def test_fused_kernels_tile_edges(cuda, name, batch, quant):
+    spec = _int8_spec(EDGE_SPECS[name]) if quant else EDGE_SPECS[name]
+    gen = torch.Generator().manual_seed(9)
+    params = (_int8_params if quant else _params)(spec, gen, cuda)
+    x = torch.rand((batch, spec.d_in), generator=gen).to(cuda)
+    fp = fops.pack(spec, params)
+    before = (fops.fused_samples.launches, fops.fused_moments.launches,
+              fops.fused_samples.int8_launches,
+              fops.fused_moments.int8_launches)
+    tol = TOL_INT8 if quant else TOL_FWD
+    torch.testing.assert_close(fops.fused_samples(fp, x),
+                               fref.fused_plan_ref(spec, x, params),
+                               rtol=tol, atol=tol)
+    for got, want in zip(fops.fused_moments(fp, x),
+                         fref.fused_moments_ref(spec, x, params)):
+        tol = TOL_INT8 if quant else TOL_MOMENTS
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert (fops.fused_samples.launches, fops.fused_moments.launches,
+            fops.fused_samples.int8_launches,
+            fops.fused_moments.int8_launches) == \
+        (before[0] + 1, before[1] + 1, before[2] + quant, before[3] + quant)
+
+
 def test_int8_volume_on_card(cuda):
     """The int8 main path at a small size: fused (one int8 moments launch
     per chunk) and per-op (one int8 masked_ffn launch per chunk) agree
