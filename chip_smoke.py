@@ -75,8 +75,11 @@ Phases, each on its own line; any failure raises and exits nonzero:
      ``plan_hardware``'s plan executed on the card beside its modeled
      latency;
   4. LM kernel vs plain at full width (masked and packed FFN, bf16, and
-     the fp32 copy) and at a ragged smoke shape, with the per-op step's
-     time and the kernel's per-stage times beside it;
+     the fp32 copy) and at a ragged smoke shape, mean_logp also held to
+     TOL_DECODE_REL of its magnitude (fp32-accurate products), with the
+     per-op step's time, the kernel's per-stage times and each stage's
+     byte bound beside it, its FLOPs priced at the rate its products run
+     (three bf16 products; 3xTF32 for fp32 weights);
   5. LM main path: ``serve_uncertain`` fused and per-op in bf16 and fp32,
      launch counts asserted (one fused_decode launch per emitted token on
      the fused legs, none on the per-op legs), fp32 legs held together;
@@ -146,6 +149,24 @@ LM_ARCH, LM_MASKS, LM_BATCH, LM_PROMPT, LM_NEW = "qwen2-1.5b", 4, 8, 128, 32
 # reductions meet in atomics) over 28 layers of 1,536- to 8,960-long
 # products; measured at most 3.8e-6 on mean_logp, 2.6e-7 on rel_unc.
 TOL_DECODE = 1e-4
+# fused_decode's products run on the tensor cores as three bf16 products of
+# an exact split of each fp32 activation (3xTF32 for fp32 weights), allowed
+# only at fp32 accuracy: the max error of mean_logp over the plain
+# version's largest |mean_logp| must stay below this. At the main shape
+# plain bf16 activations (one part) read 4.2e-4 to 4.7e-4 and three parts
+# 1.4e-6 to 2.1e-6 (tools/probe_fused_decode.py and chip_smoke.py on an
+# H100, PERF.md); two parts read as three there (the fp32 sums' own noise
+# over 28 layers hides them), so this bar stops the one-part product and
+# TOL_DECODE_SPLIT the two-part one.
+TOL_DECODE_REL = 1e-5
+# The same error at the "split" case: bf16 at the smoke widths (64- and
+# 128-long products, 2 layers) with the tied embeddings times
+# SPLIT_EMBED_SCALE, so the logits' error, not mean_logp's own fp32
+# rounding, leads it. Set between what three and two parts read there
+# (tools/probe_fused_decode.py on an H100, weight seeds 0-7: three parts
+# 1.6e-7 to 2.5e-7, two 1.3e-6 to 2.3e-6, one 9.7e-4 to 1.7e-3; PERF.md).
+TOL_DECODE_SPLIT = 6e-7
+SPLIT_EMBED_SCALE = 16.0
 # k/v outputs are rounded to bf16 from fp32 values that differ by that
 # noise: within one bf16 ulp of the plain value, plus the fp32 noise at the
 # tensor's scale (the fp32 k/v differ by at most 1.4e-6 x max |k|), which
@@ -238,6 +259,37 @@ def _within_bf16_ulp(got, want) -> float:
     return float(err.max())
 
 
+def stage_bytes(spec, flat, rows, kv_bytes, x, got) -> dict:
+    """Bytes each stage of ``fused_decode`` (named as in ``stage_ms``) must
+    move at least: its weights (and a norm's scale, bias or mask that it
+    reads), the valid k/v cache rows for attention, the logits the
+    epilogue reads and what it writes; all layers summed."""
+    from repro_torch.kernels.fused_decode import ops as fd_ops
+    from repro_torch.kernels.fused_plan import ref as fp_ref
+    to_stage = {"wq": "qkv", "bq": "qkv", "wk": "qkv", "bk": "qkv",
+                "wv": "qkv", "bv": "qkv", "wo": "wo", "wg": "gate_up",
+                "wu": "gate_up", "bu": "gate_up", "wgp": "gate_up",
+                "wup": "gate_up", "wd": "down", "bd": "down", "wdp": "down",
+                "mask": "down", "w": "lm_head"}
+    names = fd_ops.stage_names(spec)
+    out = dict.fromkeys(names, 0)
+    # the chain's norms in order: norm1, norm2 a layer, then the final one
+    norm_at = [i for i, st in enumerate(spec.steps) if st.kind == "norm"]
+    norm_stage = {i: ("final_norm" if k == len(norm_at) - 1 else
+                      ("norm1", "norm2")[k % 2]) for k, i in enumerate(norm_at)}
+    for (i, name), t in zip(fp_ref.decode_param_slots(spec), flat):
+        n = t.numel() * t.element_size()
+        out[norm_stage[i] if i in norm_stage else to_stage[name]] += n
+    logits = rows * spec.vocab * 4
+    out["attention"] += kv_bytes
+    out["log_sum_exp"] += logits
+    out["welford"] += logits + sum(g.numel() * g.element_size()
+                                   for g in got[:2])
+    out["argmax"] += got[0].numel() * got[0].element_size()
+    out["norm1"] += 2 * x.numel() * x.element_size()   # x in, the residual out
+    return out
+
+
 def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
     """Phases 4 and 5: the LM decode kernel against its plain version at
     full width, then ``serve_uncertain`` fused and per-op (``counters``:
@@ -287,7 +339,8 @@ def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
 
     recs = {}
 
-    def kernel_case(name, c, p, caches, tok, plen, step_legs=False):
+    def kernel_case(name, c, p, caches, tok, plen, step_legs=False,
+                    rel_bar=TOL_DECODE_REL):
         spec, args = operands(c, p, caches, tok, plen)
         got = fd_ops.fused_decode(spec, *args)
         want = fd_ops.fused_decode_ref(spec, *args)
@@ -331,7 +384,14 @@ def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
         kv_bytes = 2 * seen * at.n_kv_heads * at.head_dim \
             * fc[0].element_size() + nbytes(*fc[2::3])
         moved = nbytes(x, pos, cos, sin, *got, *flat) + kv_bytes
-        rec = {"shape": name, "max_abs_err": err, "kv_max_abs_err": kv_err,
+        # fp32 accuracy: mean_logp's error over its largest magnitude
+        rel = float((got[0] - want[0]).abs().max() / want[0].abs().max())
+        if not rel <= rel_bar:
+            raise AssertionError(f"fused_decode {name}: error {rel:.3g} of "
+                                 f"|mean_logp| (> {rel_bar}): the "
+                                 f"products are not fp32-accurate")
+        rec = {"shape": name, "max_abs_err": err, "rel_err": rel,
+               "kv_max_abs_err": kv_err,
                "kv_err_over_max": kv_scale_err,
                "kv_beyond_1ulp_of_itself": kv_self,
                "ms": time_ms(lambda: fd_ops.fused_decode(spec, *args), 10),
@@ -339,10 +399,18 @@ def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
                    spec, *args), 3),
                "blocks": fd_ops.last_grid["blocks"], "rows": rows,
                "gflop": flops / 1e9, "mbytes": moved / 1e6}
-        # the last timed launch, per stage (block 0's barrier timestamps)
+        # the last timed launch, per stage (block 0's barrier timestamps),
+        # beside the bytes each stage must move at the HBM rate
         rec["stage_ms"] = {k: round(v, 4) for k, v in
                            fd_ops.stage_ms(spec, rows, dev).items()}
-        rec["bound_ms"], rec["bound_by"] = bound(flops, moved)
+        rec["stage_bound_ms"] = {
+            k: round(1e3 * v / HBM_BW, 4) for k, v in
+            stage_bytes(spec, flat, rows, kv_bytes, x, got).items()}
+        # the products run as three bf16 tensor-core products (3xTF32 for
+        # fp32 weights); the CUDA cores' fp32 rate beside it
+        peak = BF16_PEAK / 3 if x.dtype == torch.bfloat16 else TF32_3X_PEAK
+        rec["bound_ms"], rec["bound_by"] = bound(flops, moved, peak)
+        rec["bound_ms_cuda_cores"] = bound(flops, moved)[0]
         if step_legs:                   # whole serving steps, same operands
             # and the fused step's parts outside the kernel
             rot = next(st.rot_dim for st in spec.steps if st.kind == "attn")
@@ -375,6 +443,19 @@ def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
                           generator=torch.Generator(dev).manual_seed(3))
     scaches, stok = pool(scfg, sparams, 4, stoks, cap=7)
     kernel_case("ragged", scfg, sparams, scaches, stok, 6)
+    # the products' accuracy where a dropped split part shows: bf16 at the
+    # smoke widths, the (tied) embeddings times SPLIT_EMBED_SCALE so that
+    # the logits' error, not mean_logp's own rounding, leads
+    qcfg = registry.smoke_config(LM_ARCH, dtype=torch.bfloat16)
+    qparams = transformer.init(qcfg, torch.Generator(dev).manual_seed(4),
+                               device=dev)
+    qparams["embed"]["embed"] *= SPLIT_EMBED_SCALE
+    qtoks = torch.randint(0, qcfg.vocab_size, (3, 6), device=dev,
+                          dtype=torch.int32,
+                          generator=torch.Generator(dev).manual_seed(5))
+    qcaches, qtok = pool(qcfg, qparams, qcfg.mask_samples, qtoks, cap=9)
+    kernel_case("split", qcfg, qparams, qcaches, qtok, 6,
+                rel_bar=TOL_DECODE_SPLIT)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params32 = _tree(lambda t: t.float(), params)
     caches32, tok32 = pool(cfg32, params32, LM_MASKS, prompts)
@@ -498,6 +579,10 @@ def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
         "ms": main["ms"], "kernel_ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": None,
+        "bound_ms_cuda_cores": main["bound_ms_cuda_cores"],
+        "rel_err": max(r["rel_err"] for r in recs.values()),
+        "stage_ms": main["stage_ms"],
+        "stage_bound_ms": main["stage_bound_ms"],
         "packed_ms": recs["packed"]["ms"],
         "packed_bound_ms": recs["packed"]["bound_ms"],
         "ragged_ms": recs["ragged"]["ms"], "fp32_ms": recs["fp32"]["ms"],

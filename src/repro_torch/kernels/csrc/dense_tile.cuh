@@ -134,7 +134,81 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
       : "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
+// 16 (4) bytes global -> shared of which the first `bytes` are read from
+// src (aligned as the copy) and the rest zero-filled; lands after the
+// caller's cp_async_commit / cp_async_wait.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, unsigned bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, unsigned bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+// The box at (c0 inner, c1 outer) of a 2D tensor map (a CUtensorMap in
+// device memory) to dst, completing on `bar` with the box's bytes (zeros
+// where the box passes the tensor's edge).
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      :
+      : "r"(smem_u32(dst)), "l"(map), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+// Orders this thread's earlier generic accesses to shared memory before
+// later bulk copies (the async proxy) into the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// The same for device memory: this thread's generic writes before bulk
+// copies (after a barrier, from any thread) that read them.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+// ---- bf16 fragments (m16n8k16) ----
+// Four 8 x 8 b16 matrices from shared memory: lane l gives the 16-byte row
+// l % 8 of matrix l / 8; register q of lane t holds matrix q's row t / 4,
+// columns 2 (t % 4) and + 1 (low half first). With .trans, column t / 4,
+// rows 2 (t % 4) and + 1: a row-major [k][n] tile read as A[n][k].
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+// d += a . b on one 16 x 8 x 16 tile, bf16 operands, fp32 accumulation
+// (PTX ISA layouts: a0 (g, 2c | 2c + 1), a1 (g + 8, ...), a2 (g, 2c + 8 |
+// 2c + 9), a3 (g + 8, ...); b0 (k = 2c | 2c + 1, n = g), b1 (k = 2c + 8 |
+// 2c + 9, n = g); d as in mma_tf32). A bf16 x bf16 product is exact in fp32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm(  // not volatile: the compiler may interleave independent tiles
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 #endif
+
+// x = hi + mid + lo, each part x's remainder rounded to bf16 (nearest): x's
+// 24 significant bits in three 8-bit pieces, so the sum is x exactly (for
+// |x| above bf16's normal floor, 2^-126). Three bf16 products on one weight
+// fragment then give w . x as fp32 would, but for the order of the sums.
+__device__ __forceinline__ void split_bf16x3(float x, __nv_bfloat16& hi, __nv_bfloat16& mid,
+                                             __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(x);
+  const float r1 = x - __bfloat162float(hi);
+  mid = __float2bfloat16_rn(r1);
+  lo = __float2bfloat16_rn(r1 - __bfloat162float(mid));
+}
 
 // Copy rows x cols elements of `esize` bytes from src (row stride lds
 // elements, device memory) to dst (row stride ldd elements, shared memory),

@@ -273,6 +273,24 @@ DECODE_CASES = {
     "kv_bf16": (_SMOKE("qwen2-1.5b", n_layers=2), {"kv_bf16": True}),
     "long_cache": (_SMOKE("qwen2-1.5b", n_layers=1),
                    {"b": 2, "plen": 280, "max_seq": 300}),
+    # qwen2-1.5b's GQA group (12 heads on 2 KV heads) at smoke depth, at
+    # its head width and at MAX_HEAD_DIM
+    "gqa6_dh128": (_SMOKE("qwen2-1.5b", n_layers=2, n_heads=12,
+                          n_kv_heads=2, head_dim=128), {}),
+    "gqa6_dh256": (_SMOKE("qwen2-1.5b", n_layers=2, n_heads=12,
+                          n_kv_heads=2, head_dim=dops.MAX_HEAD_DIM), {}),
+    # a group whose attention state outgrows one task (48 heads on one KV
+    # head at dh 256: two head chunks a row), and packed FFN jobs past the
+    # kernel's job table (20 masks: 40 gate/up jobs)
+    "gqa48_dh256": (_SMOKE("qwen2-1.5b", n_layers=1, n_heads=48,
+                           n_kv_heads=1, head_dim=dops.MAX_HEAD_DIM),
+                    {"b": 1}),
+    "packed_20_masks": (_SMOKE("qwen2-1.5b", n_layers=1, mask_samples=20),
+                        {"pack": True, "b": 1}),
+    # an odd vocabulary: LM head rows 2-byte aligned in bf16 (no tensor map:
+    # copied by the threads), as qwen2-1.5b's packed FFN rows (4,779 kept
+    # units) are
+    "odd_vocab": (_SMOKE("qwen2-1.5b", n_layers=1, vocab_size=101), {}),
 }
 
 
@@ -297,6 +315,24 @@ def test_fused_decode_kernel_matches_plain(cuda, name, dtype):
             _within_bf16_ulp(g, w)
         else:
             torch.testing.assert_close(g, w, rtol=TOL_FWD, atol=TOL_FWD)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_fused_decode_kernel_repeats(cuda, dtype):
+    """Two launches on the same operands agree within TOL_FWD: the split
+    sums meet in atomics, in another order each launch."""
+    cfg, kw = DECODE_CASES["gqa6_dh128"]
+    cfg = dataclasses.replace(cfg, dtype=getattr(torch, dtype))
+    spec, args = _decode_inputs(cfg, cuda, **kw)
+    first = [t.clone() for t in dops.fused_decode(spec, *args)]
+    again = dops.fused_decode(spec, *args)
+    for g, a in zip(first[:2], again[:2]):
+        torch.testing.assert_close(a, g, rtol=TOL_FWD, atol=TOL_FWD)
+    for g, a in zip(first[2:], again[2:]):
+        if g.dtype == torch.bfloat16:
+            _within_bf16_ulp(a, g)
+        else:
+            torch.testing.assert_close(a, g, rtol=TOL_FWD, atol=TOL_FWD)
 
 
 def test_serve_uncertain_on_card_fused_matches_per_op(cuda):
