@@ -33,6 +33,12 @@ and read just after:
   requests x 128-token prompts, 32 new tokens). It has no fused decode
   lowering: exact prefill (every rec block through ``rglru_scan``, every
   local-attention block through ``flash_attention``), per-op decode.
+* The continuous-batching server: ``serving.server.BayesianLMServer`` on
+  the same qwen2-1.5b (bf16, 4 masks) with an 8-slot pool (32 rows,
+  max_seq 160, ``fused=True``): 24 requests (prompts of 16-128 tokens,
+  8-32 new tokens) in three waves of 8 interleaved with ``step()``, and
+  the IVIM slab as one ``submit_scan`` after the first wave (a 4-mask
+  dense uIVIM-NET: a scan's sample axis is the pool's mask axis).
 
 Phases, each on its own line; any failure raises and exits nonzero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -101,7 +107,26 @@ Phases, each on its own line; any failure raises and exits nonzero:
      then, in fp32 at full width and 5 layers, the log-probs of
      ``prefill(prompt[:s+1])`` (both kernels) against ``prefill(prompt[:s])``
      and one ``decode_step`` of token s (neither kernel);
-  8. one JSON line with every kernel's numbers, then the device line.
+  8. the server: every prefill bucket the traffic uses, the decode step
+     and the scan executor warmed, then the timed run with its launches
+     asserted (one fused_decode a step with an LM slot, one fused_moments
+     a scan chunk, one moments and 28 flash_attention an admission), zero
+     step builds and zero fused fallbacks, the pooled scan bitwise the
+     direct ``predict_volume``; its serving numbers (ms a step, decode
+     tokens/s, TTFT p50/p99, queue wait, scan voxels/s in the pool beside
+     direct, peak queue depth, occupancy, pool MB); the same traffic again
+     with each part of a step timed here (``[server_breakdown]``: where an
+     admission's time goes); fused_decode against its plain version at the
+     server's shapes (1, 3 and 8 of 8 slots active, the rest at pos -1);
+     4 fp32 requests whose tokens must equal the one-shot
+     ``serve_uncertain``'s (rel-unc within 1e-3); one traced run that must
+     pass ``benchmarks/verify_obs.verify_trace_events``; and a
+     recurrentgemma-2b pool (bf16, 26 layers, per-op, 2 slots, 4 requests
+     of 8 new tokens, the later ones arriving mid-decode) with its
+     ``rglru_scan``/``flash_attention`` launches and every released slot's
+     rows (h, conv zero; kpos -1) asserted;
+  9. one JSON line with every kernel's numbers (the server's launches as
+     ``server_launches``), then the device line.
 
 Weights are random from ``torch.Generator`` seeds (IVIM: seed 0 with
 non-trivial BN running statistics from seed 1; LM: seed 0); the data is
@@ -178,6 +203,19 @@ TOL_LM_UNC = 1e-3
 LM_FLASH_LAUNCHES = 28          # one a layer of qwen2-1.5b's prefill
 HOST_CALLS = 1000               # calls a host-path part is timed over
 HY_ARCH, HY_PATH_LAYERS = "recurrentgemma-2b", 5
+# the server phase: qwen2-1.5b's 8-slot pool (32 rows, max_seq 160, the
+# pool serve_uncertain serves), 24 requests in 3 waves of 8 with 12 steps
+# between waves, prompts of 16-128 tokens and 8-32 new tokens drawn from
+# numpy seed 0, plus one scan of the IVIM slab; fused_decode held to its
+# plain version at 1, 3 and 8 active slots; 4 fp32 requests against the
+# one-shot serve_uncertain; a traced run of 4 requests and a 3-chunk scan;
+# the hybrid pool: 2 slots, 4 requests of 8 new tokens
+SRV_SLOTS, SRV_REQUESTS, SRV_WAVE, SRV_WAVE_STEPS = 8, 24, 8, 12
+SRV_MIN_PROMPT, SRV_MIN_NEW = 16, 8
+SRV_ACTIVE = (1, 3, 8)
+SRV_FP32_REQUESTS, SRV_FP32_PROMPT = 4, 64
+SRV_TRACE_REQUESTS, SRV_TRACE_CHUNKS = 4, 3
+SRV_HY_SLOTS, SRV_HY_REQUESTS, SRV_HY_NEW = 2, 4, 8
 # moments vs its plain version: the reference's own kernel-vs-ref bar
 # (tests/test_kernels.py); bf16 within one bf16 ulp of the plain value
 TOL_MO_MEAN = dict(rtol=1e-5, atol=1e-6)
@@ -875,6 +913,472 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
                       "library_device_ms")}}]
 
 
+def _load_verify_obs():
+    """The repository's trace verifier (benchmarks/verify_obs.py), loaded by
+    path: its trace checks import nothing but the standard library."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "benchmarks" / "verify_obs.py"
+    spec = importlib.util.spec_from_file_location("verify_obs", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def server_phases(dev, time_ms, bound, nbytes, counters, scan_plan,
+                  volume) -> dict:
+    """Phase 8: the continuous-batching server (``serving.server.
+    BayesianLMServer``) on qwen2-1.5b at full width and depth, with LM
+    requests arriving in waves and one IVIM scan sharing the pool; then
+    the admission breakdown, fused_decode at the server's shapes, the fp32
+    pool against the one-shot ``serve_uncertain``, a traced run through the
+    repository's verifier, and the hybrid pool. ``counters`` as for
+    :func:`lm_phases`. Returns the launch counts by kernel."""
+    import collections
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.core import uncertainty as unc_lib
+    from repro_torch.kernels.fused_decode import ops as fd_ops
+    from repro_torch.models import layers, model as lm_model, transformer
+    from repro_torch.obs import export as obs_export
+    from repro_torch.obs import registry as obs_registry
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serving import engine, server
+
+    names = ("masked_ffn", "fused_plan_samples", "fused_plan_moments",
+             "moments", "fused_decode", "flash_attention", "rglru_scan")
+
+    def reset():
+        for ctr in counters:
+            ctr.launches = 0
+
+    def launches() -> dict:
+        return {n: ctr.launches for n, ctr in zip(names, counters)}
+
+    def builds() -> float:
+        return obs_registry.REGISTRY.value("step_builds_total")
+
+    def fallbacks():
+        return (dict(server.fallback_counts), dict(engine.fallback_counts),
+                obs_registry.REGISTRY.value("fused_fallback_total"))
+
+    def pct(vals, q):
+        return float(np.percentile(np.asarray(vals), q)) if vals \
+            else float("nan")
+
+    cfg = registry.get_config(LM_ARCH, mask_samples=LM_MASKS)
+    model = lm_model.build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0), device=dev)
+    scfg = server.ServerConfig(max_slots=SRV_SLOTS, max_prompt_len=LM_PROMPT,
+                               max_new_tokens=LM_NEW, fused=True)
+    rng = np.random.default_rng(0)
+    traffic = [(rng.integers(0, cfg.vocab_size, int(n)), int(m)) for n, m in
+               zip(rng.integers(SRV_MIN_PROMPT, LM_PROMPT + 1, SRV_REQUESTS),
+                   rng.integers(SRV_MIN_NEW, LM_NEW + 1, SRV_REQUESTS))]
+    buckets = sorted({plan_lib.prefill_bucket(len(t), scfg.max_seq)
+                      for t, _ in traffic})
+    x = volume.reshape(-1, volume.shape[-1])
+    n_vox, n_chunks = x.shape[0], -(-x.shape[0] // CHUNK)
+
+    # ---- warm every step the traffic uses: the scan executor (and the
+    # direct result the pooled scan is held to), each prefill bucket, the
+    # decode step; the timed run must build nothing
+    direct = engine.predict_volume(scan_plan, volume, chunk=CHUNK,
+                                   fused=True, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    engine.predict_volume(scan_plan, volume, chunk=CHUNK, fused=True,
+                          device=dev)
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t
+    warm = server.BayesianLMServer(model, params, scfg, device=dev)
+    for b in buckets:
+        warm.submit(traffic[0][0][:1].repeat(b), max_new_tokens=2)
+    warm.submit_scan(scan_plan, x[:CHUNK], chunk=CHUNK, fused=True)
+    warm.run()
+    del warm
+
+    # ---- the timed run: three waves of LM requests interleaved with
+    # step(), the scan submitted after the first wave
+    srv = server.BayesianLMServer(model, params, scfg, device=dev)
+    before = (builds(), fallbacks(), dict(srv.steps.counts))
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids, rs = [], None
+    for w in range(0, SRV_REQUESTS, SRV_WAVE):
+        for toks, mnt in traffic[w:w + SRV_WAVE]:
+            rids.append(srv.submit(toks, max_new_tokens=mnt))
+        if rs is None:
+            rs = srv.submit_scan(scan_plan, x, chunk=CHUNK, fused=True)
+        for _ in range(SRV_WAVE_STEPS):
+            srv.step()
+    summary = srv.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = launches()
+    built = builds() - before[0]
+    occ, vocc = (srv.metrics.occupancy_samples,
+                 srv.metrics.voxel_occupancy_samples)
+    lm_steps = sum(o > v for o, v in zip(occ, vocc))
+    admissions = len(traffic)
+    prefills = srv.steps.counts["prefill_bucketed"] \
+        - before[2].get("prefill_bucketed", 0)
+    expect = {"masked_ffn": 0, "fused_plan_samples": 0,
+              "fused_plan_moments": n_chunks, "moments": admissions,
+              "fused_decode": lm_steps,
+              "flash_attention": LM_FLASH_LAUNCHES * admissions,
+              "rglru_scan": 0}
+    if got != expect:
+        raise AssertionError(f"server launches {got}, expected {expect}")
+    if built != 0 or fallbacks() != before[1] or not srv.steps.fused_live():
+        raise AssertionError(f"server timed run: {built} step builds, "
+                             f"fallbacks {fallbacks()} (before "
+                             f"{before[1]})")
+    if prefills != admissions:
+        raise AssertionError(f"{prefills} bucketed prefills for "
+                             f"{admissions} admissions")
+    scan = srv.result(rs)
+    pooled = scan.scan_moments()
+    want = tuple(t.reshape(n_vox, -1) for t in direct)
+    if scan.status != "done" or not all(torch.equal(g, w) for g, w in
+                                         zip(pooled, want)):
+        raise AssertionError("the pooled scan differs from the direct "
+                             "predict_volume")
+    for r, (toks, mnt) in zip(rids, traffic):
+        st = srv.result(r)
+        if st.status != "done" or len(st.generated) != mnt or not all(
+                math.isfinite(u) for u in st.uncertainty) or not all(
+                0 <= tok < cfg.vocab_size for tok in st.generated):
+            raise AssertionError(f"request {r}: {st.status}, "
+                                 f"{len(st.generated)} of {mnt} tokens")
+    if summary.completed != admissions + 1 or srv.occupied_slots:
+        raise AssertionError(f"server: {summary.completed} completed")
+    tls = [srv.metrics.timelines[r] for r in rids]
+    scan_tl = srv.metrics.timelines[rs]
+    scan_s = scan_tl.finish_t - scan_tl.admit_t
+    pool_bytes = nbytes(*(t for seg in srv._caches for c in seg.values()
+                          for t in c.values()))
+    main = {"arch": LM_ARCH, "dtype": cfg.dtype, "slots": SRV_SLOTS,
+            "rows": srv.schedule.rows, "max_seq": scfg.max_seq,
+            "requests": admissions, "scans": 1, "buckets": buckets,
+            "steps": summary.decode_steps, "lm_steps": lm_steps,
+            "seconds": secs, "ms_per_step": 1e3 * secs / summary.decode_steps,
+            "lm_tokens": summary.total_tokens,
+            "decode_tokens_per_s": summary.total_tokens / secs,
+            "summary_tokens_per_s": summary.tokens_per_s,
+            "ttft_p50_ms": 1e3 * pct([t.ttft for t in tls], 50),
+            "ttft_p99_ms": 1e3 * pct([t.ttft for t in tls], 99),
+            "latency_p50_ms": 1e3 * summary.latency_p50_s,
+            "latency_p99_ms": 1e3 * summary.latency_p99_s,
+            "queue_wait_p50_ms": 1e3 * summary.queue_wait_p50_s,
+            "scan_voxels_per_s_in_pool": n_vox / scan_s,
+            "scan_voxels_per_s_direct": n_vox / direct_s,
+            "scan_steps_in_pool": len(scan.chunk_results),
+            "peak_queue_depth": summary.peak_queue_depth,
+            "mean_slot_occupancy": summary.mean_slot_occupancy,
+            "mean_voxel_occupancy": summary.mean_voxel_occupancy,
+            "pool_mbytes": pool_bytes / 1e6, "builds_in_run": built,
+            "launches": got, "pooled_scan_equals_direct": True}
+    _phase("server", **main)
+
+    # ---- where a step's time goes: the same traffic again on a fresh
+    # server, each part timed with a synchronize on either side (the
+    # server itself holds no timer: the parts are wrapped here)
+    parts: dict[str, list] = collections.defaultdict(list)
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            parts[name].append(1e3 * (time.perf_counter() - t))
+            return out
+        # one attribute dict: a kernel wrapper counts its launches on the
+        # module-level name, which is this wrapper while it is patched in
+        wrapper.__dict__ = fn.__dict__
+        return wrapper
+
+    srv2 = server.BayesianLMServer(model, params, scfg, device=dev)
+    patched = [(transformer, "prefill"), (transformer, "cache_trim_positions"),
+               (transformer, "cache_scatter_rows"),
+               (transformer, "cache_reset_rows"),
+               (unc_lib, "token_posterior"), (fd_ops, "fused_decode"),
+               (plan_lib, "_decode_commit_caches")]
+    saved = [getattr(mod, n) for mod, n in patched]
+    for mod, n in patched:
+        setattr(mod, n, timed(n, getattr(mod, n)))
+    for n in ("step", "_advance_scan"):
+        setattr(srv2, n, timed(n, getattr(srv2, n)))
+    admit = srv2._admit
+
+    def admit_by_kind(rid, slot):        # LM admissions apart from scans'
+        kind = srv2.states[rid].kind
+        return timed("_admit" if kind == "lm" else "_admit_scan", admit)(
+            rid, slot)
+
+    srv2._admit = admit_by_kind
+    try:
+        rs2 = None
+        for w in range(0, SRV_REQUESTS, SRV_WAVE):
+            for toks, mnt in traffic[w:w + SRV_WAVE]:
+                srv2.submit(toks, max_new_tokens=mnt)
+            if rs2 is None:
+                rs2 = srv2.submit_scan(scan_plan, x, chunk=CHUNK, fused=True)
+            for _ in range(SRV_WAVE_STEPS):
+                srv2.step()
+        srv2.run()
+    finally:
+        for (mod, n), fn in zip(patched, saved):
+            setattr(mod, n, fn)
+    tot = {k: sum(v) for k, v in parts.items()}
+    n_admit, n_decode = len(parts["_admit"]), len(parts["fused_decode"])
+    admit_rest = tot["_admit"] - sum(
+        tot[k] for k in ("prefill", "cache_trim_positions",
+                         "token_posterior", "cache_scatter_rows"))
+    breakdown = {
+        "replay_ms": tot["step"], "admissions": n_admit,
+        "admit_ms_each": tot["_admit"] / n_admit,
+        "admit_prefill_forward_ms_each": tot["prefill"] / n_admit,
+        "admit_trim_ms_each": tot["cache_trim_positions"] / n_admit,
+        "admit_first_posterior_ms_each": tot["token_posterior"] / n_admit,
+        "admit_scatter_ms_each": tot["cache_scatter_rows"] / n_admit,
+        "admit_rest_ms_each": admit_rest / n_admit,
+        "admit_share_of_steps": tot["_admit"] / tot["step"],
+        "scan_chunk_ms_each": tot["_advance_scan"]
+        / len(parts["_advance_scan"]),
+        "slot_reset_ms_each": tot["cache_reset_rows"]
+        / len(parts["cache_reset_rows"]),
+        "lm_steps": n_decode,
+        "decode_kernel_ms_each": tot["fused_decode"] / n_decode,
+        "decode_commit_ms_each": tot["_decode_commit_caches"] / n_decode,
+        # a step with LM slots, less its admissions and scan chunk: the
+        # kernel, the commit, embedding and RoPE, the host bookkeeping
+        "decode_step_ms_each": (tot["step"] - tot["_admit"]
+                                - tot.get("_admit_scan", 0.0)
+                                - tot["_advance_scan"]
+                                - tot["cache_reset_rows"]) / n_decode}
+    _phase("server_breakdown", **{k: round(v, 4) if isinstance(v, float)
+                                  else v for k, v in breakdown.items()})
+    del srv2
+
+    # ---- one admission's prefill (the longest bucket) under the profiler:
+    # the card's busy time beside the wall time
+    toks = torch.from_numpy(traffic[0][0][:1].repeat(buckets[-1])).to(dev)
+    toks = toks.to(torch.int32)[None].repeat(LM_MASKS, 1)
+    fns = server.step_fns(model, fused=True, device=dev)
+    fns.prefill(params, toks, max_seq=scfg.max_seq)
+    prof = torch.profiler
+    with prof.profile(activities=[prof.ProfilerActivity.CPU,
+                                  prof.ProfilerActivity.CUDA]) as trace:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fns.prefill(params, toks, max_seq=scfg.max_seq)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    per_kernel: dict[str, list] = {}
+    for e in trace.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            acc = per_kernel.setdefault(e.name, [0.0, 0])
+            acc[0] += e.time_range.elapsed_us()
+            acc[1] += 1
+    busy = sum(us for us, _ in per_kernel.values()) / 1e3
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+    _phase("server_prefill_profile", bucket=buckets[-1], rows=LM_MASKS,
+           wall_ms=f"{wall_ms:.3f}",
+           device_ms=f"{busy:.3f}" if busy else "not measured",
+           device_busy_share=f"{busy / wall_ms:.3f}" if busy
+           else "not measured",
+           kernels=sum(n for _, n in per_kernel.values()),
+           top_kernels_us=[(name[:40], round(us, 1), n)
+                           for name, (us, n) in top])
+    del trace, per_kernel
+
+    # ---- fused_decode at the server's shapes: 1, 3 and 8 of 8 slots
+    # active (the rest at pos -1), against its plain version
+    spec = plan_lib.lower_fused_decode(cfg)
+    rot = next(st.rot_dim for st in spec.steps if st.kind == "attn")
+    shape_recs = {}
+    for active in SRV_ACTIVE:
+        probe = server.BayesianLMServer(model, params, scfg, device=dev)
+        for toks, _ in traffic[:active]:
+            probe.submit(toks)
+        probe.step()
+        tok = np.zeros(SRV_SLOTS, np.int32)
+        pos = np.full(SRV_SLOTS, -1, np.int32)
+        for slot, rid in enumerate(probe._slots):
+            if rid is not None:
+                tok[slot] = probe.states[rid].pending
+                pos[slot] = probe.states[rid].next_pos
+        rows_tok = probe.schedule.row_values(torch.from_numpy(tok)).to(dev)
+        rows_pos = probe.schedule.row_values(torch.from_numpy(pos)).to(dev)
+        rows = rows_tok.shape[0]
+        flat = plan_lib._decode_flat_params(spec, cfg, params, rows, True)
+        fc = plan_lib._decode_flat_caches(cfg, probe._caches)
+        xe = layers.embed_tokens(params["embed"], rows_tok)
+        cos, sin = layers.rope_cos_sin(rows_pos, rot, cfg.rope_theta)
+        args = (xe, flat, fc, rows_pos, cos, sin)
+        got_k = fd_ops.fused_decode(spec, *args)
+        want_k = fd_ops.fused_decode_ref(spec, *args)
+        for g, w in zip(got_k[:2], want_k[:2]):
+            torch.testing.assert_close(g, w, rtol=TOL_DECODE, atol=TOL_DECODE)
+        rel = float((got_k[0] - want_k[0]).abs().max()
+                    / want_k[0].abs().max())
+        if not rel <= TOL_DECODE_REL:
+            raise AssertionError(f"fused_decode at {active} active slots: "
+                                 f"error {rel:.3g} of |mean_logp|")
+        kv_err = max(_within_bf16_ulp(g, w) for g, w in
+                     zip(got_k[2:], want_k[2:]))
+        # the bytes this step must move: weights, the valid cache rows of
+        # the active slots, operands and outputs
+        # what this step's data needs, as in lm_phases' kernel_case: the
+        # valid cache slots of each row (kpos in [0, pos], not the slot
+        # being overwritten) plus the fresh key; rows at pos -1 read none
+        attn = [st for st in spec.steps if st.kind == "attn"]
+        p64, smax = rows_pos.long(), fc[0].shape[2]
+        seen = 0
+        for st, kp in zip(attn, fc[2::3]):
+            slot = ((p64 % st.window) if st.window else p64) % smax
+            seen += int(((kp >= 0) & (kp <= p64[:, None])
+                         & (torch.arange(smax, device=dev)[None, :]
+                            != slot[:, None])).sum())
+        at = attn[0]
+        per_key = 4 * at.n_heads * at.head_dim // at.n_kv_heads
+        flops = plan_lib.decode_traffic(spec, rows, smax).flops \
+            - len(attn) * rows * at.n_kv_heads * per_key * (smax + 1) \
+            + at.n_kv_heads * per_key * (seen + len(attn) * rows)
+        moved = nbytes(xe, rows_pos, cos, sin, *got_k, *flat, *fc[2::3]) \
+            + 2 * seen * at.n_kv_heads * at.head_dim * fc[0].element_size()
+        rec = {"active_slots": active, "rows": rows,
+               "active_rows": active * LM_MASKS,
+               "max_abs_err": max(float((g - w).abs().max())
+                                  for g, w in zip(got_k[:2], want_k[:2])),
+               "rel_err": rel, "kv_max_abs_err": kv_err,
+               "ms": time_ms(lambda: fd_ops.fused_decode(spec, *args), 10),
+               "plain_ms": time_ms(lambda: fd_ops.fused_decode_ref(
+                   spec, *args), 2)}
+        rec["bound_ms"], rec["bound_by"] = bound(flops, moved,
+                                                 BF16_PEAK / 3)
+        _phase("server_kernel", name="fused_decode", **rec)
+        shape_recs[active] = rec
+        del probe, args, got_k, want_k, flat, fc
+
+    # ---- the fp32 pool against the one-shot serve_uncertain (batch
+    # independence; in bf16 the fused kernel's atomics can split near-ties)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model32 = lm_model.build_model(cfg32)
+    params32 = _tree(lambda t: t.float(), params)
+    p32 = rng.integers(0, cfg.vocab_size, (SRV_FP32_REQUESTS, SRV_FP32_PROMPT))
+    srv32 = server.BayesianLMServer(model32, params32, scfg, device=dev)
+    rids32 = [srv32.submit(p) for p in p32]
+    reset()
+    srv32.run()
+    steps32 = launches()["fused_decode"]
+    gen, unc, _ = engine.serve_uncertain(
+        model32, params32, torch.from_numpy(p32).to(dev),
+        engine.ServeConfig(max_new_tokens=LM_NEW, fused=True), device=dev)
+    same = all(srv32.result(r).generated == gen[i, SRV_FP32_PROMPT:].tolist()
+               for i, r in enumerate(rids32))
+    pool_unc = torch.tensor([srv32.result(r).uncertainty for r in rids32])
+    if not same or steps32 != LM_NEW:
+        raise AssertionError(f"fp32 pool vs serve_uncertain: tokens equal "
+                             f"{same}, {steps32} fused_decode launches")
+    torch.testing.assert_close(pool_unc, unc.cpu(), rtol=TOL_LM_UNC,
+                               atol=TOL_LM_UNC)
+    _phase("server_agreement", dtype=cfg32.dtype,
+           requests=SRV_FP32_REQUESTS, prompt=SRV_FP32_PROMPT,
+           new_tokens=LM_NEW, tokens_equal=True,
+           rel_unc_max_abs_err=float((pool_unc - unc.cpu()).abs().max()),
+           tol=TOL_LM_UNC, fused_decode_launches=steps32)
+    del srv32, params32, model32, gen, unc
+
+    # ---- one traced run through the repository's verifier
+    obs_trace.TRACER.configure(capacity=1 << 16)
+    tsrv = server.BayesianLMServer(
+        model, params, dataclasses.replace(scfg, trace=True), device=dev)
+    for toks, mnt in traffic[:SRV_TRACE_REQUESTS]:
+        tsrv.submit(toks, max_new_tokens=mnt)
+    tsrv.submit_scan(scan_plan, x[:SRV_TRACE_CHUNKS * CHUNK], chunk=CHUNK,
+                     fused=True)
+    tsrv.run()
+    obs_trace.TRACER.disable()
+    events = obs_trace.TRACER.events()
+    errors = _load_verify_obs().verify_trace_events(events)
+    kinds = collections.Counter(e["name"] for e in events)
+    exposition = obs_export.parse_exposition(obs_export.prometheus_text())
+    if errors or not {"enqueue", "admit", "prefill", "step", "decode",
+                      "token", "chunk", "finish"} <= set(kinds) or not any(
+            n == "serving_requests_total" for n, _ in exposition):
+        raise AssertionError(f"trace check: {errors[:5]}, events {kinds}")
+    _phase("server_trace", records=len(events), verifier_errors=0,
+           events=dict(kinds), exposition_samples=len(exposition))
+    obs_trace.TRACER.clear()
+    del tsrv, params, model
+    torch.cuda.empty_cache()
+
+    # ---- the hybrid pool: recurrentgemma-2b, per-op, 2 slots; the second
+    # request arrives while the first decodes, so its admission scatters
+    # h and conv into a pool that is stepping
+    hcfg = registry.get_config(HY_ARCH, mask_samples=LM_MASKS)
+    hmodel = lm_model.build_model(hcfg)
+    hparams = hmodel.init(torch.Generator(dev).manual_seed(0), device=dev)
+    hscfg = server.ServerConfig(max_slots=SRV_HY_SLOTS,
+                                max_prompt_len=LM_PROMPT,
+                                max_new_tokens=SRV_HY_NEW, fused=False)
+    hsrv = server.BayesianLMServer(hmodel, hparams, hscfg, device=dev)
+    kinds = [k for seg in hcfg.segments() for _ in range(seg.reps)
+             for k in seg.pattern]
+    hy_traffic = [rng.integers(0, hcfg.vocab_size, int(n)) for n in
+                  rng.integers(SRV_MIN_PROMPT, LM_PROMPT + 1,
+                               SRV_HY_REQUESTS)]
+    reset()
+    hrids = [hsrv.submit(hy_traffic[0])]
+    resets = steps = 0
+    pending = list(hy_traffic[1:])
+    while True:
+        if steps == 2:                        # the rest arrive mid-decode
+            hrids += [hsrv.submit(p) for p in pending]
+        held = list(hsrv._slots)
+        if not hsrv.step():
+            break
+        steps += 1
+        for slot, rid in enumerate(held):     # released this step: reset
+            if rid is None or hsrv._slots[slot] is not None:
+                continue
+            rows = hsrv.schedule.rows_for_slot(slot, device=dev)
+            for seg in hsrv._caches:
+                for c in seg.values():
+                    for name, leaf in c.items():
+                        want_v = -1 if name == "kpos" else 0
+                        if not bool((leaf[:, rows] == want_v).all()):
+                            raise AssertionError(f"hybrid slot {slot}: "
+                                                 f"{name} not reset")
+            resets += 1
+    hgot = launches()
+    n_rec, n_local = kinds.count("rec"), kinds.count("local_attn")
+    if (hgot["rglru_scan"], hgot["flash_attention"], hgot["fused_decode"]) \
+            != (n_rec * SRV_HY_REQUESTS, n_local * SRV_HY_REQUESTS, 0) \
+            or resets != SRV_HY_REQUESTS:
+        raise AssertionError(f"hybrid server launches {hgot}, "
+                             f"{resets} slot resets")
+    for r in hrids:
+        st = hsrv.result(r)
+        if st.status != "done" or len(st.generated) != SRV_HY_NEW or not \
+                all(math.isfinite(u) for u in st.uncertainty):
+            raise AssertionError(f"hybrid request {r}: {st.status}")
+    _phase("server_hybrid", arch=HY_ARCH, layers=len(kinds),
+           dtype=hcfg.dtype, slots=SRV_HY_SLOTS, requests=SRV_HY_REQUESTS,
+           new_tokens=SRV_HY_NEW, steps=steps, slot_resets_checked=resets,
+           launches=hgot)
+    del hsrv, hparams, hmodel
+    torch.cuda.empty_cache()
+    return {"main": got, "hybrid": hgot, "shapes": shape_recs}
+
+
 def moments_phase(dev, time_ms, bound, nbytes) -> dict:
     """Phase 2b: the moments kernel against its plain version and against
     ``torch.std_mean`` (the one PyTorch call that computes the same
@@ -1326,23 +1830,29 @@ def main() -> int:
         return rel
 
     # ---- the dense model and its plan (shared by phases 2 and 3) ----------
-    cfg = ivim_model.IvimConfig(b_values=physics.DENSE_B_VALUES, n_masks=8,
-                                scale=2.0)
-    model = ivim_model.init(cfg, torch.Generator().manual_seed(0),
-                            device=dev)
-    gen = torch.Generator().manual_seed(1)
-    with torch.no_grad():
-        for i in (1, 2):
-            shape = getattr(model, f"bn{i}_mean").shape
-            getattr(model, f"bn{i}_mean").copy_(
-                0.2 * torch.randn(shape, generator=gen))
-            getattr(model, f"bn{i}_var").copy_(
-                0.5 + torch.rand(shape, generator=gen))
-            getattr(model, f"bn{i}")["gamma"].copy_(
-                0.5 + torch.rand(shape, generator=gen))
-            getattr(model, f"bn{i}")["beta"].copy_(
-                0.1 * torch.randn(shape, generator=gen))
-    model.eval()
+    def dense_model(n_masks: int):
+        """uIVIM-NET at the dense protocol: weights from seed 0, BN running
+        statistics and affine parameters from seed 1."""
+        cfg = ivim_model.IvimConfig(b_values=physics.DENSE_B_VALUES,
+                                    n_masks=n_masks, scale=2.0)
+        model = ivim_model.init(cfg, torch.Generator().manual_seed(0),
+                                device=dev)
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for i in (1, 2):
+                shape = getattr(model, f"bn{i}_mean").shape
+                getattr(model, f"bn{i}_mean").copy_(
+                    0.2 * torch.randn(shape, generator=gen))
+                getattr(model, f"bn{i}_var").copy_(
+                    0.5 + torch.rand(shape, generator=gen))
+                getattr(model, f"bn{i}")["gamma"].copy_(
+                    0.5 + torch.rand(shape, generator=gen))
+                getattr(model, f"bn{i}")["beta"].copy_(
+                    0.1 * torch.randn(shape, generator=gen))
+        model.eval()
+        return cfg, model
+
+    cfg, model = dense_model(8)
     plan = ivim_model.pack_for_serving(model)
     n_vox = VOLUME[0] * VOLUME[1] * VOLUME[2]
     volume = ivim_data.make_dataset(ivim_data.SyntheticConfig(
@@ -1594,7 +2104,7 @@ def main() -> int:
     q_launches["packed_apply"] = counts
 
     # ---- phases 3b-3d: the design flow -------------------------------------
-    del volume, voxels, want
+    del voxels, want
     torch.cuda.empty_cache()
     flow = flow_phases(dev, time_ms, counters)
 
@@ -1610,7 +2120,15 @@ def main() -> int:
     # ---- phases 6 and 7: the hybrid kernels and the hybrid main path ------
     hybrid_recs = hybrid_phases(dev, time_ms, bound, nbytes, lm_counters)
 
-    # ---- phase 8: the kernels line, then the device line ------------------
+    # ---- phase 8: the continuous-batching server --------------------------
+    # the slab served through the pool by the same dense uIVIM-NET at the
+    # pool's 4 masks (a scan's sample axis is the pool's mask axis)
+    scan_plan = ivim_model.pack_for_serving(dense_model(LM_MASKS)[1])
+    srv = server_phases(dev, time_ms, bound, nbytes, lm_counters, scan_plan,
+                        volume)
+    del volume, scan_plan
+
+    # ---- phase 9: the kernels line, then the device line ------------------
     main_launches = {"masked_ffn": launches["per_op"][0],
                      "moments": launches["per_op"][3],
                      "fused_plan_samples": samples_launches,
@@ -1659,6 +2177,14 @@ def main() -> int:
                      "library_device_ms")}})
     line.append(decode_rec)
     line.extend(hybrid_recs)
+    for rec in line:       # the server phase's launches beside each kernel
+        if rec["name"] in srv["main"]:
+            rec["server_launches"] = srv["main"][rec["name"]]
+            rec["server_hybrid_launches"] = srv["hybrid"][rec["name"]]
+    decode_rec["server_shapes"] = {
+        f"active_{a}": {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "rel_err")}
+        for a, r in srv["shapes"].items()}
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

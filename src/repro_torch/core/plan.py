@@ -31,7 +31,6 @@ range conversion C(.) when ``out_ranges`` is set.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import functools
 import weakref
@@ -53,6 +52,7 @@ from repro_torch.kernels.fused_plan import ops as fp_ops
 from repro_torch.kernels.fused_plan import ref as fused_ref
 from repro_torch.kernels.fused_plan.ref import FusedPlanUnsupported
 from repro_torch.kernels.masked_ffn import ops as mffn_ops
+from repro_torch.obs import registry as obs_registry
 
 Params = dict[str, Any]
 
@@ -61,7 +61,7 @@ __all__ = ["SharedDense", "PackedPair", "Activation", "OutputHead",
            "tree_map", "params_from_jax",
            "fold_bn_dense", "fold_bn_ivim", "compile_ivim", "compile_mlp",
            "compile_masked_ffn", "execute", "lower_fused", "execute_fused",
-           "fused_executor", "FusedPlanUnsupported", "fused_lowering_counts",
+           "fused_executor", "FusedPlanUnsupported", "build_counts",
            "pack_ffn_leaves", "ffn_leaves_apply", "lower_fused_decode",
            "compile_decode_step", "decode_fused_spec", "prefill_buckets",
            "prefill_bucket", "prefill_fused_spec", "compile_prefill_step",
@@ -187,6 +187,11 @@ class PackedPlan:
     schedule: sched_lib.Schedule = sched_lib.Schedule("batch")
     out_ranges: tuple[tuple[float, float], ...] | None = None
     precision: Precision = Precision()
+    # fused executors built for this plan, by (spec, device, moments): a
+    # new plan (``to``, ``with_precision``, ``dataclasses.replace``) starts
+    # empty, so an executor never outlives the weights it packed
+    _executors: dict = dataclasses.field(default_factory=dict, init=False,
+                                         repr=False, compare=False)
 
     @property
     def sample_axis(self) -> int:
@@ -794,10 +799,15 @@ def _quantize_lowering(steps: list, params: list) -> tuple[list, list]:
     return new_steps, new_params
 
 
-#: Lowerings of the fused executor, keyed by ``(spec, device type,
-#: moments)``: a chunk-streaming caller lowers once and serves every chunk
-#: from the one packed parameter buffer, so one volume leaves its key at 1.
-fused_lowering_counts: collections.Counter = collections.Counter()
+#: What the serving layer builds once and reuses, one count per cache miss,
+#: keyed by kind and config: ``("step_fns", cfg, ...)`` (serving.server),
+#: ``("decode", cfg, ...)`` (:func:`compile_decode_step`), ``("prefill",
+#: cfg, ..., bucket, max_seq)`` (:func:`compile_prefill_step`) and
+#: ``("plan", spec, ...)`` (:func:`fused_executor`). The port's twin of the
+#: reference's ``retrace_total``: a warm serving loop leaves it flat.
+build_counts = obs_registry.REGISTRY.keyed_counter(
+    "step_builds_total",
+    "serving steps and executors built (cache misses), by kind and config")
 
 
 def fused_executor(plan: PackedPlan, *, moments: bool = False,
@@ -805,16 +815,23 @@ def fused_executor(plan: PackedPlan, *, moments: bool = False,
                    ) -> Callable[[torch.Tensor], Any]:
     """Lower once, serve many: returns ``x -> fused result``.
 
-    Raises :class:`FusedPlanUnsupported` immediately when the op chain has
-    no fused lowering; the kernel's shared-memory residency guard fires
-    later, from the first ``apply`` on a CUDA tensor — callers that want
-    the per-op fallback catch around that first call too.
+    The plan is lowered on every call (which raises
+    :class:`FusedPlanUnsupported` immediately when the op chain has no
+    fused lowering); the packed parameter buffer and the executor are built
+    once per (plan, spec, device, mode) and reused. The kernel's
+    shared-memory residency guard fires later, from the first ``apply`` on
+    a CUDA tensor — callers that want the per-op fallback catch around that
+    first call too.
     """
     dev = device_lib.resolve(device)
     plan = plan.to(dev)
     spec, params = lower_fused(plan)
+    key = (spec, dev, moments)
+    apply = plan._executors.get(key)
+    if apply is not None:
+        return apply
     fp = fp_ops.pack(spec, params)
-    fused_lowering_counts[(spec, dev.type, moments)] += 1
+    build_counts[("plan",) + key] += 1
 
     def apply(x: torch.Tensor):
         x = x.to(dev).contiguous()
@@ -827,6 +844,7 @@ def fused_executor(plan: PackedPlan, *, moments: bool = False,
             std = std * (hi - lo).abs()
         return mean, std
 
+    plan._executors[key] = apply
     return apply
 
 
@@ -1080,6 +1098,7 @@ def _decode_runner(cfg, expand_masks: bool, device: torch.device):
     spec = lower_fused_decode(cfg, expand_masks=expand_masks)
     rot = next(s.rot_dim for s in spec.steps if s.kind == "attn")
     last: dict[str, Any] = {}
+    build_counts[("decode", cfg, expand_masks, device)] += 1
 
     @torch.no_grad()
     def run(params, caches, tokens, pos):
@@ -1188,6 +1207,7 @@ def _prefill_runner(cfg, expand_masks: bool, bucket: int, max_seq: int):
     prefill_fused_spec(cfg, expand_masks=expand_masks)
     bayes = cfg.bayesian and expand_masks
     n = cfg.mask_samples if bayes else 1
+    build_counts[("prefill", cfg, expand_masks, bucket, max_seq)] += 1
 
     @torch.no_grad()
     def run(params, tokens, length: int):

@@ -9,14 +9,17 @@ orders compute identical results with very different weight traffic:
 * **batch-level** (the paper's scheme): sample-outer, batch-inner — each
   weight set is read once per batch -> ``N`` weight loads.
 
-The port keeps what ``core/plan.py`` consumes: the chunk partition of the
-serving engine, the schedule and slot-layout records, and the analytic
-traffic model the plan's byte/FLOP accounting is built from.
+The port keeps what ``core/plan.py`` and the serving layer consume: the
+chunk partition of the serving engine, the schedule, the serving pool's
+slot layout, and the analytic traffic model the plan's byte/FLOP
+accounting is built from.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 __all__ = ["Schedule", "SlotSchedule", "chunk_bounds", "weight_load_counts",
            "TrafficModel", "traffic_model"]
@@ -50,15 +53,53 @@ class Schedule:
 
 @dataclasses.dataclass(frozen=True)
 class SlotSchedule:
-    """Row layout of a serving pool: ``n_masks * max_slots`` rows,
-    mask-major (row ``m * max_slots + s`` is mask-sample ``m`` of slot
-    ``s``). The pool's own helpers arrive with the server (slice 2)."""
+    """Row layout of the continuous-batching serving pool
+    (``serving/server.py``): ``n_masks * max_slots`` rows, mask-major (row
+    ``m * max_slots + s`` is mask-sample ``m`` of slot ``s``). One request
+    occupies one *slot group* — the ``n_masks`` rows of a single slot — so
+    the mask-id vector is a constant (:meth:`mask_ids`), the batch-level
+    schedule applies to every decode step whichever requests are resident,
+    and admitting or freeing a request touches exactly
+    :meth:`rows_for_slot`. Tensors come back on ``device`` (default the
+    CPU)."""
     n_masks: int
     max_slots: int
 
     def __post_init__(self) -> None:
         if self.n_masks < 1 or self.max_slots < 1:
             raise ValueError(f"bad slot schedule {self}")
+
+    @property
+    def rows(self) -> int:
+        """Total batch rows of the pooled cache."""
+        return self.n_masks * self.max_slots
+
+    def mask_ids(self, device=None) -> torch.Tensor:
+        """Constant per-row mask assignment [rows] (mask-major groups, the
+        layout of ``masksembles.mask_ids_for_batch``)."""
+        return torch.arange(self.n_masks, device=device) \
+            .repeat_interleave(self.max_slots)
+
+    def rows_for_slot(self, slot: int, device=None) -> torch.Tensor:
+        """Batch rows of slot ``slot``'s group, one per mask [n_masks]."""
+        return torch.arange(self.n_masks, device=device) * self.max_slots \
+            + int(slot)
+
+    def row_values(self, per_slot) -> torch.Tensor:
+        """Broadcast a per-slot vector [max_slots] to per-row [rows] (e.g.
+        per-slot decode positions -> per-row cache positions)."""
+        return torch.as_tensor(per_slot).repeat(self.n_masks)
+
+    def admits(self, other: "SlotSchedule") -> None:
+        """Pool-admission hook for voxel-chunk work items: a PackedPlan's
+        ``plan.slot_schedule(max_slots)`` must coincide with the pool's
+        layout — the scan's sample axis is the pool's mask axis, so one
+        batch-level loop order covers resident LM and voxel work. Raises
+        ValueError on mismatch."""
+        if self != other:
+            raise ValueError(
+                f"plan sample axis does not map onto the pool layout: "
+                f"plan {other} vs pool {self} (n_masks must match)")
 
 
 def weight_load_counts(schedule: Schedule, batch: int, n_samples: int) -> int:

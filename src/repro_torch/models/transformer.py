@@ -42,7 +42,8 @@ Params = dict[str, Any]
 BLOCK_KINDS = frozenset({"attn", "local_attn", "rec"})
 
 __all__ = ["check_supported", "init", "params_from_jax", "init_cache",
-           "cache_specs", "cache_trim_positions", "pack_ffn_params",
+           "cache_specs", "cache_scatter_rows", "cache_gather_rows",
+           "cache_reset_rows", "cache_trim_positions", "pack_ffn_params",
            "prefill", "decode_step"]
 
 
@@ -157,6 +158,56 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int):
     """``(shape, dtype)`` of every cache leaf, without allocating."""
     return _cache_shapes(cfg, batch, max_seq)
+
+
+# Every cache leaf — k/v/kpos, the int8 scales and the recurrent h/conv
+# alike — is shaped [reps, batch, ...]: batch rides on axis 1. The three
+# helpers below are the slot-pool contract of serving/server.py: a pooled
+# cache is a cache whose batch axis is the slot-row axis. Functional, like
+# the decode steps: the trees passed in are left as they were.
+
+def _rows_on(rows, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(rows, dtype=torch.int64, device=like.device)
+
+
+def cache_scatter_rows(pool, fresh, rows):
+    """Write the rows of a small cache (batch b) into a pooled cache (batch
+    B >= b) at batch indices ``rows`` [b] — how the server places a newly
+    admitted request's prefill into its slot rows while in-flight rows keep
+    decoding."""
+    return [{b: {name: t.index_copy(1, _rows_on(rows, t),
+                                    fseg[b][name].to(t.dtype))
+                 for name, t in c.items()}
+             for b, c in pseg.items()}
+            for pseg, fseg in zip(pool, fresh)]
+
+
+def cache_gather_rows(pool, rows):
+    """The pooled cache restricted to batch indices ``rows`` [b] — the
+    inverse of :func:`cache_scatter_rows` (slot inspection)."""
+    return [{b: {name: t.index_select(1, _rows_on(rows, t))
+                 for name, t in c.items()}
+             for b, c in seg.items()}
+            for seg in pool]
+
+
+def cache_reset_rows(pool, row_mask):
+    """Clear the rows where ``row_mask`` [B] is True: k/v, the int8 scales
+    and the recurrent state to zero, kpos to -1 (empty) — the init state.
+    The server runs this when a slot group is freed, so unoccupied rows
+    stay observably empty."""
+    out = []
+    for seg in pool:
+        new = {}
+        for b, c in seg.items():
+            new[b] = {}
+            for name, t in c.items():
+                m = torch.as_tensor(row_mask, dtype=torch.bool,
+                                    device=t.device)
+                m = m.reshape((1, m.shape[0]) + (1,) * (t.ndim - 2))
+                new[b][name] = t.masked_fill(m, -1 if name == "kpos" else 0)
+        out.append(new)
+    return out
 
 
 def cache_trim_positions(caches, length: int):

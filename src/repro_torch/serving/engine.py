@@ -30,6 +30,7 @@ from repro_torch import device as device_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import scheduler as scheduler_lib
 from repro_torch.core import uncertainty as unc_lib
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import server as server_lib
 
 __all__ = ["plan_chunk_runner", "predict_packed", "predict_volume",
@@ -73,6 +74,7 @@ def plan_chunk_runner(plan: plan_lib.PackedPlan, *,
         if fused:
             raise
         fallback_counts["build"] += 1
+        server_lib._note_fallback("build", "plan")
         return per_op
     if fused:
         return run
@@ -87,6 +89,7 @@ def plan_chunk_runner(plan: plan_lib.PackedPlan, *,
             out = run(xc)          # the residency guard fires here
         except plan_lib.FusedPlanUnsupported:
             fallback_counts["call"] += 1
+            server_lib._note_fallback("call", "plan")
             state["fn"] = per_op
             return per_op(xc)
         state["fn"] = run
@@ -139,18 +142,35 @@ def predict_packed(plan: plan_lib.PackedPlan, x: torch.Tensor, *,
 
 def predict_volume(plan: plan_lib.PackedPlan, volume: torch.Tensor, *,
                    chunk: int = 4096, fused: bool | None = None,
-                   device: torch.device | str | None = None
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
+                   device: torch.device | str | None = None, server=None,
+                   priority: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Stream a clinical scan through the executor: volume [..., D] (e.g.
     ``[X, Y, Z, n_bvalues]``) -> (mean, std), each ``[..., d_out]``. The
     voxel grid is flattened, served by :func:`predict_packed` in fixed
-    ``chunk``-voxel slices and reshaped back to the scan's layout."""
+    ``chunk``-voxel slices and reshaped back to the scan's layout.
+
+    With ``server=`` (a :class:`repro_torch.serving.server.BayesianLMServer`)
+    this becomes a thin pool client, on the server's device: the scan is
+    submitted as one voxel-chunk work item (``server.submit_scan`` —
+    sharing the LM requests' admission queue, backpressure and escalation
+    policy at ``priority``), the server drains, and the reassembled moments
+    come back bitwise equal to the direct path (both run the one
+    :func:`plan_chunk_runner` executor over the same
+    ``core.scheduler.chunk_bounds`` partition)."""
     if volume.ndim < 2:
         raise ValueError(f"volume must be [..., D], got {tuple(volume.shape)}")
     lead = tuple(volume.shape[:-1])
     x = volume.reshape(-1, volume.shape[-1])
-    mean, std = predict_packed(plan, x, chunk=chunk, fused=fused,
-                               device=device)
+    with obs_trace.TRACER.span("predict_volume", n_voxels=int(x.shape[0]),
+                               chunk=chunk, pooled=server is not None):
+        if server is not None:
+            rid = server.submit_scan(plan, x, chunk=chunk, priority=priority,
+                                     fused=fused)
+            server.run()
+            mean, std = server.result(rid).scan_moments()
+        else:
+            mean, std = predict_packed(plan, x, chunk=chunk, fused=fused,
+                                       device=device)
     return (mean.reshape(lead + (mean.shape[-1],)),
             std.reshape(lead + (std.shape[-1],)))
 

@@ -226,9 +226,12 @@ def _within_bf16_ulp(got: torch.Tensor, want: torch.Tensor) -> None:
 
 
 def _decode_inputs(cfg, device, *, b=3, plen=5, max_seq=9, expand=True,
-                   pack=False, kv_bf16=False, inactive=False, seed=0):
+                   pack=False, kv_bf16=False, inactive=False, active=None,
+                   seed=0):
     """One pool decode step's kernel operands: a prefilled mask-major pool
-    of b requests (n * b rows) at position ``plen``."""
+    of b requests (n * b rows) at position ``plen``; with ``active`` only
+    the first ``active`` slots decode and the rest ride at pos -1, as the
+    server's inactive slots do."""
     params = transformer.init(cfg, torch.Generator(device).manual_seed(seed),
                               device=device)
     if pack:
@@ -251,6 +254,8 @@ def _decode_inputs(cfg, device, *, b=3, plen=5, max_seq=9, expand=True,
     pos = torch.full((rows,), plen, dtype=torch.int32, device=device)
     if inactive:
         pos[1] = -1
+    if active is not None:                 # row r belongs to slot r % b
+        pos[torch.arange(rows, device=device) % b >= active] = -1
     rot = next(s.rot_dim for s in spec.steps if s.kind == "attn")
     x = layers.embed_tokens(params["embed"], toks[:, -1])
     cos, sin = layers.rope_cos_sin(pos, rot, cfg.rope_theta)
@@ -291,6 +296,10 @@ DECODE_CASES = {
     # copied by the threads), as qwen2-1.5b's packed FFN rows (4,779 kept
     # units) are
     "odd_vocab": (_SMOKE("qwen2-1.5b", n_layers=1, vocab_size=101), {}),
+    # the server's pool: 8 slots (32 rows), 1, 3 or all 8 of them active
+    **{f"pool_{k}_of_8": (_SMOKE("qwen2-1.5b", n_layers=2),
+                          {"b": 8, "active": k, "max_seq": 12})
+       for k in (1, 3, 8)},
 }
 
 
@@ -1021,3 +1030,74 @@ def test_train_step_on_card_matches_cpu(cuda):
     model, hist = ivim_train.train(cfg, tcfg, device=cuda)
     assert len(hist) == 3 and np.isfinite(hist).all()
     assert all(p.device.type == "cuda" for p in model.parameters())
+
+
+def test_bucketed_prefill_bitwise_on_card(cuda):
+    """On the card the bucketed prefill (prompt padded to its bucket) is the
+    exact-length prefill bit for bit at every length: posterior,
+    uncertainty and every cache leaf (the flash kernel's masked keys add
+    exact zeros)."""
+    cfg = _SMOKE("qwen2-1.5b", n_layers=2)
+    model = lm_model.build_model(cfg)
+    params = model.init(torch.Generator(cuda).manual_seed(0), device=cuda)
+    fb = server.step_fns(model, device=cuda)
+    fe = server.step_fns(model, prefill_buckets=(), device=cuda)
+    gen = torch.Generator().manual_seed(2)
+    for length in range(1, 13):
+        toks = torch.randint(0, cfg.vocab_size, (1, length), generator=gen)
+        toks = toks.repeat(cfg.mask_samples, 1).to(cuda)
+        got = fb.prefill(params, toks, max_seq=12)
+        want = fe.prefill(params, toks, max_seq=12)
+        for g, w in zip(got[:2], want[:2]):
+            assert torch.equal(g, w), length
+        for seg_g, seg_w in zip(got[2], want[2]):
+            for b in seg_g:
+                for name in seg_g[b]:
+                    assert torch.equal(seg_g[b][name], seg_w[b][name]), \
+                        (length, b, name)
+
+
+def test_server_on_card(cuda):
+    """The continuous-batching server at smoke size on the card: one fused
+    decode launch a step with an LM slot, one fused moments launch a scan
+    chunk, no step built on repeat traffic, the pooled scan bitwise the
+    direct predict_volume, and the pool's tokens those of the one-shot
+    serve_uncertain (rel-unc within the reference's posterior bar)."""
+    from repro_torch.obs import registry as obs_registry
+    cfg = _SMOKE("qwen2-1.5b", n_layers=2)
+    model = lm_model.build_model(cfg)
+    params = model.init(torch.Generator(cuda).manual_seed(0), device=cuda)
+    icfg = ivim_model.IvimConfig(n_masks=cfg.mask_samples)
+    plan = ivim_model.pack_for_serving(ivim_model.init(
+        icfg, torch.Generator().manual_seed(1), device=cuda))
+    x = torch.rand((45, icfg.width), generator=torch.Generator(
+        cuda).manual_seed(3), device=cuda)
+    direct = engine.predict_volume(plan, x, chunk=8, fused=True, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (4, 6),
+                         generator=torch.Generator().manual_seed(4))
+    scfg = server.ServerConfig(max_slots=3, max_prompt_len=8,
+                               max_new_tokens=5, fused=True)
+    for warm in (True, False):
+        srv = server.BayesianLMServer(model, params, scfg, device=cuda)
+        builds = obs_registry.REGISTRY.value("step_builds_total")
+        before = (dops.fused_decode.launches, fops.fused_moments.launches)
+        rids = [srv.submit(t) for t in toks]
+        rs = srv.submit_scan(plan, x, chunk=8, fused=True)
+        srv.run()
+        occ = zip(srv.metrics.occupancy_samples,
+                  srv.metrics.voxel_occupancy_samples)
+        assert dops.fused_decode.launches - before[0] == \
+            sum(o > v for o, v in occ)
+        assert fops.fused_moments.launches - before[1] == 6
+        if not warm:
+            assert obs_registry.REGISTRY.value("step_builds_total") == builds
+    for g, w in zip(srv.result(rs).scan_moments(), direct):
+        assert torch.equal(g, w)
+    gen, unc, _ = engine.serve_uncertain(
+        model, params, toks, engine.ServeConfig(max_new_tokens=5,
+                                                fused=True), device=cuda)
+    for i, r in enumerate(rids):
+        st = srv.result(r)
+        assert st.generated == gen[i, 6:].tolist()
+        torch.testing.assert_close(torch.tensor(st.uncertainty),
+                                   unc[i].cpu(), rtol=1e-4, atol=1e-5)

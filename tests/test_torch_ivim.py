@@ -268,10 +268,12 @@ def test_packed_paths_match_unpacked_model():
 def test_stream_lowers_once():
     model, tx = _port_model(11, 4)
     plan = t_model.pack_for_serving(model)
-    key = (t_plan.lower_fused(plan)[0], "cpu", True)
-    before = t_plan.fused_lowering_counts[key]
+    key = ("plan", t_plan.lower_fused(plan)[0], torch.device(CPU), True)
+    before = t_plan.build_counts[key]
     t_engine.predict_packed(plan, tx, chunk=5, fused=True, device=CPU)
-    assert t_plan.fused_lowering_counts[key] == before + 1
+    assert t_plan.build_counts[key] == before + 1
+    t_engine.predict_packed(plan, tx, chunk=5, fused=True, device=CPU)
+    assert t_plan.build_counts[key] == before + 1     # built once a plan
 
 
 def test_runner_falls_back_only_on_unsupported(monkeypatch):
