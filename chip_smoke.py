@@ -39,6 +39,14 @@ and read just after:
   8-32 new tokens) in three waves of 8 interleaved with ``step()``, and
   the IVIM slab as one ``submit_scan`` after the first wave (a 4-mask
   dense uIVIM-NET: a scan's sample axis is the pool's mask axis).
+* Multi-host serving: ``serving.router.ServingRouter`` over three such
+  servers (three 8-slot pools beside one copy of the weights) on a
+  ``ManualClock`` advanced 1 s a router step: the same traffic unfaulted,
+  then under ``FaultPlan.seeded(0)`` plus a kill of the scan's home host
+  while the scan is resident; in fp32, a host killed mid-decode against
+  one server.
+* The paper's schedules (§V-C/D, Fig. 5, Table II) at the dense IVIM
+  widths, and the H100 latency model beside what the card measured.
 
 Phases, each on its own line; any failure raises and exits nonzero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -125,8 +133,32 @@ Phases, each on its own line; any failure raises and exits nonzero:
      of 8 new tokens, the later ones arriving mid-decode) with its
      ``rglru_scan``/``flash_attention`` launches and every released slot's
      rows (h, conv zero; kpos -1) asserted;
-  9. one JSON line with every kernel's numbers (the server's launches as
-     ``server_launches``), then the device line.
+  9. the router (``[router]``): the unfaulted and the faulted run, each
+     with every request complete, none lost or shed, zero step builds, the
+     routed scan ``torch.equal`` to the direct ``predict_volume`` and its
+     first chunk carried over by identity (resumed, not recomputed), one
+     moments launch and 28 flash_attention an admission, one fused_moments
+     a chunk; the faulted run with one death a killed host, a retry, a
+     remesh and the scan failed over; router steps, ms a router step,
+     decode tokens/s, TTFT in router steps, recovery steps, the share of
+     bf16 tokens equal to the unfaulted run and launches by kernel; the
+     faulted run's trace through ``verify_obs`` (``[router_trace]``); and
+     ``[router_agreement]``: fp32, 4 requests, host 1 killed mid-decode,
+     tokens equal to one ``BayesianLMServer``'s, rel-unc within rtol 1e-4
+     / atol 1e-5;
+ 10. the schedules (``[schedule]``): one masked FFN (104 -> 104 -> 104, 8
+     masks) over 4,096 voxels mask by mask (mask-as-multiply, the
+     baseline), packed, ``scheduler.run`` batch- and sampling-level, and
+     ``masked_ffn`` in both grid orders, each within TOL_3XTF32_REL of the
+     baseline (the kernel's orders bit-equal); weight loads, traffic and
+     ms of each, and the ``grid_sweep`` rows beside the kernel's tile;
+ 11. pricing (``[pricing]``): ``decode_modeled_latency`` for the server's
+     pool beside the measured kernel and step, the IVIM plan's fused
+     ``modeled_latency`` beside its chunk, and the ``model_fidelity``
+     blocks (unit token: the server run; unit voxel: the fused slab);
+ 12. one JSON line with every kernel's numbers (the server's and the
+     router's launches as ``server_launches``, ``router_launches`` and
+     ``router_faulted_launches``), then the device line.
 
 Weights are random from ``torch.Generator`` seeds (IVIM: seed 0 with
 non-trivial BN running statistics from seed 1; LM: seed 0); the data is
@@ -216,6 +248,21 @@ SRV_ACTIVE = (1, 3, 8)
 SRV_FP32_REQUESTS, SRV_FP32_PROMPT = 4, 64
 SRV_TRACE_REQUESTS, SRV_TRACE_CHUNKS = 4, 3
 SRV_HY_SLOTS, SRV_HY_REQUESTS, SRV_HY_NEW = 2, 4, 8
+# the router phase: the server phase's ServerConfig on each of three hosts
+# behind a ServingRouter (bench_serving's chaos settings), a ManualClock
+# advanced 1 s a router step; the server phase's traffic unfaulted, then
+# under FaultPlan.seeded(ROUTER_SEED) over the unfaulted run's steps plus a
+# kill of the scan's home host at ROUTER_SCAN_KILL_STEP (the scan resident);
+# in fp32, 4 requests with host 1 killed mid-decode against one server
+ROUTER_HOSTS, ROUTER_TIMEOUT_S, ROUTER_RETRIES = 3, 2.5, 4
+ROUTER_SEED, ROUTER_SCAN_KILL_STEP = 0, 20
+ROUTER_FP32_REQUESTS, ROUTER_FP32_KILL_HOST, ROUTER_FP32_KILL_STEP = 4, 1, 3
+TOL_ROUTER_UNC = dict(rtol=1e-4, atol=1e-5)   # the posterior bar
+# the schedule phase: one masked FFN at the dense IVIM widths (104 -> 104
+# masked hidden units -> 104, 8 masks at scale 2) over one 4,096-voxel
+# chunk; the sampling-level loop's voxel chunk is the FPGA's 64; masked_ffn
+# runs a fixed voxel tile of 64 (kT in csrc/masked_ffn.cu)
+SCHED_WIDTH, SCHED_MASKS, SCHED_CHUNK, MFFN_TILE = 104, 8, 64, 64
 # moments vs its plain version: the reference's own kernel-vs-ref bar
 # (tests/test_kernels.py); bf16 within one bf16 ulp of the plain value
 TOL_MO_MEAN = dict(rtol=1e-5, atol=1e-6)
@@ -913,6 +960,26 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
                       "library_device_ms")}}]
 
 
+#: The seven kernels, in the order of the counters the LM, server and
+#: router phases are given.
+KERNEL_NAMES = ("masked_ffn", "fused_plan_samples", "fused_plan_moments",
+                "moments", "fused_decode", "flash_attention", "rglru_scan")
+
+
+def _reset_counts(counters) -> None:
+    for ctr in counters:
+        ctr.launches = 0
+
+
+def _launch_counts(counters) -> dict:
+    return {n: ctr.launches for n, ctr in zip(KERNEL_NAMES, counters)}
+
+
+def _step_builds() -> float:
+    from repro_torch.obs import registry as obs_registry
+    return obs_registry.REGISTRY.value("step_builds_total")
+
+
 def _load_verify_obs():
     """The repository's trace verifier (benchmarks/verify_obs.py), loaded by
     path: its trace checks import nothing but the standard library."""
@@ -922,6 +989,19 @@ def _load_verify_obs():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def server_traffic(vocab: int):
+    """The server and router phases' traffic: ``SRV_REQUESTS`` prompts of
+    ``SRV_MIN_PROMPT``-``LM_PROMPT`` tokens with ``SRV_MIN_NEW``-``LM_NEW``
+    new tokens each, drawn from numpy seed 0. Returns the generator (later
+    draws continue from it) and the ``(prompt, max_new_tokens)`` list."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    traffic = [(rng.integers(0, vocab, int(n)), int(m)) for n, m in
+               zip(rng.integers(SRV_MIN_PROMPT, LM_PROMPT + 1, SRV_REQUESTS),
+                   rng.integers(SRV_MIN_NEW, LM_NEW + 1, SRV_REQUESTS))]
+    return rng, traffic
 
 
 def server_phases(dev, time_ms, bound, nbytes, counters, scan_plan,
@@ -948,19 +1028,6 @@ def server_phases(dev, time_ms, bound, nbytes, counters, scan_plan,
     from repro_torch.obs import trace as obs_trace
     from repro_torch.serving import engine, server
 
-    names = ("masked_ffn", "fused_plan_samples", "fused_plan_moments",
-             "moments", "fused_decode", "flash_attention", "rglru_scan")
-
-    def reset():
-        for ctr in counters:
-            ctr.launches = 0
-
-    def launches() -> dict:
-        return {n: ctr.launches for n, ctr in zip(names, counters)}
-
-    def builds() -> float:
-        return obs_registry.REGISTRY.value("step_builds_total")
-
     def fallbacks():
         return (dict(server.fallback_counts), dict(engine.fallback_counts),
                 obs_registry.REGISTRY.value("fused_fallback_total"))
@@ -974,10 +1041,7 @@ def server_phases(dev, time_ms, bound, nbytes, counters, scan_plan,
     params = model.init(torch.Generator(dev).manual_seed(0), device=dev)
     scfg = server.ServerConfig(max_slots=SRV_SLOTS, max_prompt_len=LM_PROMPT,
                                max_new_tokens=LM_NEW, fused=True)
-    rng = np.random.default_rng(0)
-    traffic = [(rng.integers(0, cfg.vocab_size, int(n)), int(m)) for n, m in
-               zip(rng.integers(SRV_MIN_PROMPT, LM_PROMPT + 1, SRV_REQUESTS),
-                   rng.integers(SRV_MIN_NEW, LM_NEW + 1, SRV_REQUESTS))]
+    rng, traffic = server_traffic(cfg.vocab_size)
     buckets = sorted({plan_lib.prefill_bucket(len(t), scfg.max_seq)
                       for t, _ in traffic})
     x = volume.reshape(-1, volume.shape[-1])
@@ -1004,8 +1068,8 @@ def server_phases(dev, time_ms, bound, nbytes, counters, scan_plan,
     # ---- the timed run: three waves of LM requests interleaved with
     # step(), the scan submitted after the first wave
     srv = server.BayesianLMServer(model, params, scfg, device=dev)
-    before = (builds(), fallbacks(), dict(srv.steps.counts))
-    reset()
+    before = (_step_builds(), fallbacks(), dict(srv.steps.counts))
+    _reset_counts(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rids, rs = [], None
@@ -1019,8 +1083,8 @@ def server_phases(dev, time_ms, bound, nbytes, counters, scan_plan,
     summary = srv.run()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    got = launches()
-    built = builds() - before[0]
+    got = _launch_counts(counters)
+    built = _step_builds() - before[0]
     occ, vocc = (srv.metrics.occupancy_samples,
                  srv.metrics.voxel_occupancy_samples)
     lm_steps = sum(o > v for o, v in zip(occ, vocc))
@@ -1275,9 +1339,9 @@ def server_phases(dev, time_ms, bound, nbytes, counters, scan_plan,
     p32 = rng.integers(0, cfg.vocab_size, (SRV_FP32_REQUESTS, SRV_FP32_PROMPT))
     srv32 = server.BayesianLMServer(model32, params32, scfg, device=dev)
     rids32 = [srv32.submit(p) for p in p32]
-    reset()
+    _reset_counts(counters)
     srv32.run()
-    steps32 = launches()["fused_decode"]
+    steps32 = _launch_counts(counters)["fused_decode"]
     gen, unc, _ = engine.serve_uncertain(
         model32, params32, torch.from_numpy(p32).to(dev),
         engine.ServeConfig(max_new_tokens=LM_NEW, fused=True), device=dev)
@@ -1335,7 +1399,7 @@ def server_phases(dev, time_ms, bound, nbytes, counters, scan_plan,
     hy_traffic = [rng.integers(0, hcfg.vocab_size, int(n)) for n in
                   rng.integers(SRV_MIN_PROMPT, LM_PROMPT + 1,
                                SRV_HY_REQUESTS)]
-    reset()
+    _reset_counts(counters)
     hrids = [hsrv.submit(hy_traffic[0])]
     resets = steps = 0
     pending = list(hy_traffic[1:])
@@ -1358,7 +1422,7 @@ def server_phases(dev, time_ms, bound, nbytes, counters, scan_plan,
                             raise AssertionError(f"hybrid slot {slot}: "
                                                  f"{name} not reset")
             resets += 1
-    hgot = launches()
+    hgot = _launch_counts(counters)
     n_rec, n_local = kinds.count("rec"), kinds.count("local_attn")
     if (hgot["rglru_scan"], hgot["flash_attention"], hgot["fused_decode"]) \
             != (n_rec * SRV_HY_REQUESTS, n_local * SRV_HY_REQUESTS, 0) \
@@ -1376,7 +1440,357 @@ def server_phases(dev, time_ms, bound, nbytes, counters, scan_plan,
            launches=hgot)
     del hsrv, hparams, hmodel
     torch.cuda.empty_cache()
-    return {"main": got, "hybrid": hgot, "shapes": shape_recs}
+    return {"main": got, "hybrid": hgot, "shapes": shape_recs,
+            "seconds": secs, "lm_tokens": summary.total_tokens,
+            "ms_per_step": main["ms_per_step"]}
+
+
+def router_phases(dev, counters, scan_plan, volume) -> dict:
+    """Phase 9: the fault-tolerant router (``serving.router.ServingRouter``)
+    over three ``BayesianLMServer`` hosts on the card, each with the server
+    phase's pool (qwen2-1.5b, bf16, 28 layers), serving the server phase's
+    traffic and the IVIM slab on a ManualClock: unfaulted, then under a
+    seeded fault plan with the scan's home killed while the scan is
+    resident, traced; then the fp32 failover against one server, and the
+    trace through the repository's verifier. Runs after the server phase,
+    whose warm-up built every step the traffic uses. Returns the launches
+    by kernel of both runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import model as lm_model
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serving import engine, router as router_lib, server
+    from repro_torch.serving.faults import FaultEvent, FaultPlan
+
+    cfg = registry.get_config(LM_ARCH, mask_samples=LM_MASKS)
+    model = lm_model.build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0), device=dev)
+    scfg = server.ServerConfig(max_slots=SRV_SLOTS, max_prompt_len=LM_PROMPT,
+                               max_new_tokens=LM_NEW, fused=True)
+    rcfg = router_lib.RouterConfig(n_hosts=ROUTER_HOSTS,
+                                   heartbeat_timeout_s=ROUTER_TIMEOUT_S,
+                                   max_retries=ROUTER_RETRIES)
+    rng, traffic = server_traffic(cfg.vocab_size)
+    x = volume.reshape(-1, volume.shape[-1])
+    n_vox, n_chunks = x.shape[0], -(-x.shape[0] // CHUNK)
+    direct = engine.predict_volume(scan_plan, volume, chunk=CHUNK,
+                                   fused=True, device=dev)
+    want = tuple(t.reshape(n_vox, -1) for t in direct)
+
+    def drive(faults, rc):
+        """The server phase's arrivals through a fresh router: three waves
+        of 8 interleaved with 12 router steps, the scan after the first
+        wave, then steps until every record is terminal."""
+        clock = obs_trace.ManualClock()
+        router = router_lib.ServingRouter(model, params, scfg, rc,
+                                          device=dev, faults=faults,
+                                          clock=clock)
+        b0 = _step_builds()
+        _reset_counts(counters)
+        rids, rs, first = [], None, None
+
+        def step():
+            nonlocal first
+            router.step()
+            clock.advance(1.0)
+            scan_rec = router.result(rs)
+            if first is None and scan_rec.chunk_results:
+                first = scan_rec.chunk_results[0]
+            if router.step_i > 10_000:
+                raise AssertionError("the router did not converge")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for w in range(0, SRV_REQUESTS, SRV_WAVE):
+            for toks, mnt in traffic[w:w + SRV_WAVE]:
+                rids.append(router.submit(toks, max_new_tokens=mnt))
+            if rs is None:
+                rs = router.submit_scan(scan_plan, x, chunk=CHUNK,
+                                        fused=True)
+            for _ in range(SRV_WAVE_STEPS):
+                step()
+        while any(not r.done for r in router.records.values()):
+            step()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got, built = _launch_counts(counters), _step_builds() - b0
+        summary = router.summary()
+        scan = router.result(rs)
+        pooled = scan.scan_moments()
+        if summary.completed != SRV_REQUESTS + 1 or summary.lost \
+                or summary.shed or built:
+            raise AssertionError(f"router: {summary.format()}; {built} "
+                                 f"step builds")
+        if not all(torch.equal(g, w) for g, w in zip(pooled, want)) or \
+                scan.final.chunk_results[0] is not first:
+            raise AssertionError("the routed scan differs from the direct "
+                                 "predict_volume, or was recomputed")
+        # one moments launch and 28 flash an admission (re-admissions after
+        # a failover included); one fused_plan_moments a scan chunk — in the
+        # unfaulted run exactly one a chunk, under faults more only where a
+        # dropped step's chunks died with their host unharvested
+        # and one fused_decode a host step with an LM slot, as the server
+        # phase reads it (dropped steps ran on their host and count too)
+        admissions = got["moments"]
+        chunk_ok = got["fused_plan_moments"] == n_chunks if not \
+            faults.events else got["fused_plan_moments"] >= n_chunks
+        lm_steps = sum(o > v for h in router.hosts for o, v in zip(
+            h.server.metrics.occupancy_samples,
+            h.server.metrics.voxel_occupancy_samples))
+        if (got["masked_ffn"], got["fused_plan_samples"],
+                got["rglru_scan"]) != (0, 0, 0) or not chunk_ok or \
+                admissions < SRV_REQUESTS or \
+                got["flash_attention"] != LM_FLASH_LAUNCHES * admissions \
+                or got["fused_decode"] != lm_steps:
+            raise AssertionError(f"router launches {got}, {lm_steps} host "
+                                 f"steps with an LM slot")
+        for r, (_, mnt) in zip(rids, traffic):
+            rec = router.result(r)
+            if len(rec.generated) != mnt or not all(
+                    math.isfinite(u) for u in rec.uncertainty) or not all(
+                    0 <= tok < cfg.vocab_size for tok in rec.generated):
+                raise AssertionError(f"routed request {r}: {rec.status}, "
+                                     f"{len(rec.generated)} of {mnt}")
+        ttft = [tl.ttft for h in router.hosts
+                for tl in h.server.metrics.timelines.values()
+                if tl.finish_t is not None and tl.ttft is not None]
+        rec = {"hosts": ROUTER_HOSTS, "steps": summary.steps,
+               "seconds": secs, "ms_per_router_step":
+                   1e3 * secs / summary.steps,
+               "host_steps": [h.steps for h in router.hosts],
+               "lm_tokens": summary.total_tokens,
+               "decode_tokens_per_s": summary.total_tokens / secs,
+               # the hosts' metrics read the router's ManualClock: their
+               # TTFT is in router steps (1 virtual second each)
+               "ttft_p50_router_steps": float(np.percentile(ttft, 50)),
+               "ttft_p99_router_steps": float(np.percentile(ttft, 99)),
+               "host_ttft_p50_router_steps": [
+                   s.ttft_p50_s for s in router.host_summaries()],
+               "host_deaths": summary.host_deaths,
+               "retries": summary.retries, "spills": summary.spills,
+               "remeshes": summary.remeshes,
+               "recovery_steps": list(summary.recovery_steps),
+               "hosts_alive": summary.hosts_alive,
+               "scan_retries": scan.retries, "builds_in_run": built,
+               "launches": got, "scan_equals_direct": True}
+        return router, rids, rs, rec
+
+    # ---- unfaulted, then the seeded plan plus the scan home's kill, traced
+    clean, rids, rs, rec = drive(FaultPlan(), rcfg)
+    if rec["host_deaths"] or rec["retries"]:
+        raise AssertionError(f"unfaulted router: {rec}")
+    _phase("router", run="unfaulted", **rec)
+    scan_home = clean.result(rs).home
+    seeded = FaultPlan.seeded(ROUTER_SEED, n_hosts=ROUTER_HOSTS,
+                              horizon=clean.step_i)
+    faults = FaultPlan(events=seeded.events + (FaultEvent(
+        step=ROUTER_SCAN_KILL_STEP, host=scan_home, action="kill"),),
+        seed=ROUTER_SEED)
+    killed = {e.host for e in faults.events if e.action == "kill"}
+    obs_trace.TRACER.clear()
+    obs_trace.TRACER.configure(capacity=1 << 17)
+    chaos, _, _, frec = drive(faults, dataclasses.replace(rcfg, trace=True))
+    obs_trace.TRACER.disable()
+    events = obs_trace.TRACER.events()
+    if frec["host_deaths"] != len(killed) or frec["retries"] < 1 or \
+            frec["remeshes"] < 1 or frec["scan_retries"] < 1:
+        raise AssertionError(f"faulted router: {frec}, killed {killed}")
+    pairs = [(clean.result(r).generated, chaos.result(r).generated)
+             for r in rids]
+    same = sum(a == b for x_, y_ in pairs for a, b in zip(x_, y_)) \
+        / sum(len(x_) for x_, _ in pairs)
+    _phase("router", run="faulted", seed=ROUTER_SEED,
+           events=[dataclasses.astuple(e) for e in faults.events],
+           scan_home=scan_home, killed_hosts=sorted(killed),
+           tokens_equal_share_vs_unfaulted=f"{same:.4f}", **frec)
+
+    # ---- the trace of the faulted run through the repository's verifier
+    errors = _load_verify_obs().verify_trace_events(events)
+    kinds = {}
+    for e in events:
+        kinds[e["name"]] = kinds.get(e["name"], 0) + 1
+    if errors or not {"route", "host_death", "retry", "remesh", "enqueue",
+                      "finish", "fault_kill", "host_step"} <= set(kinds) \
+            or len(events) >= 1 << 17:
+        raise AssertionError(f"router trace: {errors[:5]}, events {kinds}")
+    _phase("router_trace", records=len(events), verifier_errors=0,
+           events=kinds)
+    obs_trace.TRACER.clear()
+    del clean, chaos, events
+
+    # ---- fp32: a host killed mid-decode against one server
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model32 = lm_model.build_model(cfg32)
+    params32 = _tree(lambda t: t.float(), params)
+    del params
+    p32 = rng.integers(0, cfg.vocab_size,
+                       (ROUTER_FP32_REQUESTS, SRV_FP32_PROMPT))
+    single = server.BayesianLMServer(model32, params32, scfg, device=dev)
+    srids = [single.submit(p) for p in p32]
+    single.run()
+    clock = obs_trace.ManualClock()
+    router = router_lib.ServingRouter(
+        model32, params32, scfg, rcfg, device=dev, clock=clock,
+        faults=FaultPlan(events=(FaultEvent(
+            step=ROUTER_FP32_KILL_STEP, host=ROUTER_FP32_KILL_HOST,
+            action="kill"),)))
+    rids32 = [router.submit(p) for p in p32]
+    s32 = router.run(max_steps=10_000, tick=lambda: clock.advance(1.0))
+    same = all(router.result(r).generated == single.result(q).generated
+               for r, q in zip(rids32, srids))
+    got_u = torch.tensor([router.result(r).uncertainty for r in rids32])
+    want_u = torch.tensor([single.result(q).uncertainty for q in srids])
+    if not same or s32.host_deaths != 1 or s32.retries < 1 or \
+            s32.completed != ROUTER_FP32_REQUESTS:
+        raise AssertionError(f"fp32 router vs one server: tokens equal "
+                             f"{same}; {s32.format()}")
+    torch.testing.assert_close(got_u, want_u, **TOL_ROUTER_UNC)
+    _phase("router_agreement", dtype=cfg32.dtype, layers=cfg32.n_layers,
+           requests=ROUTER_FP32_REQUESTS, prompt=SRV_FP32_PROMPT,
+           killed_host=ROUTER_FP32_KILL_HOST,
+           kill_step=ROUTER_FP32_KILL_STEP, host_deaths=s32.host_deaths,
+           retries=s32.retries, tokens_equal=True,
+           rel_unc_max_abs_err=float((got_u - want_u).abs().max()),
+           tol=TOL_ROUTER_UNC)
+    del router, single, params32, model32
+    torch.cuda.empty_cache()
+    return {"unfaulted": rec["launches"], "faulted": frec["launches"],
+            "unfaulted_rec": rec}
+
+
+def schedule_phase(dev, time_ms, counters) -> dict:
+    """Phase 10: the paper's schedule surface (§V-C/D, Fig. 5, Table II) on
+    the card at the dense IVIM widths: the Masksembles layer applied mask by
+    mask (mask-as-multiply, no skipping: the baseline), the packed form
+    (``packing.packed_ffn_apply``), ``scheduler.run`` in the batch- and
+    sampling-level orders (one product a sample and a batch or a chunk),
+    and ``masked_ffn`` in both grid orders; all held to the baseline within
+    TOL_3XTF32_REL of its magnitude, the kernel's orders bit-equal. Prints
+    each order's weight loads and traffic, each leg's ms (no bar on speed)
+    and the ``grid_sweep`` rows beside the kernel's fixed tile. Returns the
+    masked_ffn launches of the legs' run."""
+    import torch
+    from repro_torch.core import latency_model, masks as masks_lib
+    from repro_torch.core import masksembles, packing, scheduler
+    from repro_torch.kernels.masked_ffn import ops as mffn_ops
+
+    w, n, b = SCHED_WIDTH, SCHED_MASKS, CHUNK
+    spec = masks_lib.MaskSpec(width=w, n_masks=n, scale=2.0, seed=0)
+    gen = torch.Generator(dev).manual_seed(0)
+    p = masksembles.masked_ffn_init(gen, w, w, w, spec)
+    for layer in ("fc1", "fc2"):
+        p[layer]["b"] = 0.1 * torch.randn(w, generator=gen, device=dev)
+    x = torch.rand((b, w), generator=gen, device=dev)
+    pk = packing.pack_masked_ffn(p["fc1"]["w"], p["fc1"]["b"], p["fc2"]["w"],
+                                 p["fc2"]["b"], p["fc1"]["masks"])
+    keep = pk["w1p"].shape[-1]
+
+    def per_sample(params, xb, i):
+        return packing.packed_ffn_apply(params, xb, sample=i)
+
+    legs = {
+        "masked_per_mask": lambda: torch.stack([
+            masksembles.masked_ffn_apply(
+                p, x, torch.full((b,), i, device=dev)) for i in range(n)]),
+        "packed": lambda: packing.packed_ffn_apply(pk, x),
+        "batch_level": lambda: scheduler.run(
+            scheduler.Schedule("batch"), per_sample, pk, x, n),
+        "sampling_level": lambda: scheduler.run(
+            scheduler.Schedule("sampling", chunk=SCHED_CHUNK), per_sample,
+            pk, x, n),
+        "kernel_batch_level": lambda: mffn_ops.masked_ffn(
+            x, pk["w1p"], pk["b1p"], pk["w2p"], pk["b2"], sample_major=True),
+        "kernel_sampling_level": lambda: mffn_ops.masked_ffn(
+            x, pk["w1p"], pk["b1p"], pk["w2p"], pk["b2"],
+            sample_major=False)}
+    for ctr in counters:
+        ctr.launches = 0
+    outs = {name: fn() for name, fn in legs.items()}
+    torch.cuda.synchronize()
+    kernel_launches = mffn_ops.masked_ffn.launches
+    if kernel_launches != 2 or any(c.launches for c in counters
+                                   if c is not mffn_ops.masked_ffn):
+        raise AssertionError(f"schedule legs: {kernel_launches} masked_ffn "
+                             f"launches, expected 2 and no other kernel")
+    base = outs["masked_per_mask"]
+    if base.shape != (n, b, w) or not bool(torch.isfinite(base).all()):
+        raise AssertionError(f"baseline {tuple(base.shape)}")
+    rel = {}
+    for name, out in outs.items():
+        rel[name] = float((out - base).abs().max() / base.abs().max())
+        if out.shape != base.shape or not rel[name] <= TOL_3XTF32_REL:
+            raise AssertionError(f"schedule leg {name}: error {rel[name]:.3g}"
+                                 f" of the baseline's magnitude")
+    if not torch.equal(outs["kernel_batch_level"],
+                       outs["kernel_sampling_level"]):
+        raise AssertionError("masked_ffn's two grid orders differ")
+    ms = {name: time_ms(fn, 5) for name, fn in legs.items()}
+    orders = {}
+    for kind in ("batch", "sampling"):
+        sch = scheduler.Schedule(kind, chunk=SCHED_CHUNK)
+        tm = scheduler.traffic_model(sch, b, n, w, keep, w, 4)
+        orders[kind] = {"weight_loads": scheduler.weight_load_counts(sch, b,
+                                                                     n),
+                        "weight_bytes": tm.weight_bytes,
+                        "arithmetic_intensity": tm.arithmetic_intensity}
+    _phase("schedule", width=w, keep=keep, masks=n, voxels=b,
+           weight_load_counts={k: v["weight_loads"]
+                               for k, v in orders.items()},
+           orders=orders, ms=ms, rel_err=rel, kernel_orders_bit_equal=True,
+           masked_ffn_launches=kernel_launches)
+    sweep = latency_model.grid_sweep(b, w, keep, w, n)
+    for row in sweep:
+        _phase("schedule_grid_sweep", device=latency_model.H100.name,
+               kernel_tile=MFFN_TILE, **row)
+    return {"masked_ffn": kernel_launches, "ms": ms}
+
+
+def pricing_phase(srv: dict, decode_rec: dict, ivim: dict) -> None:
+    """Phase 11: the H100 latency model beside what the card measured —
+    ``decode_modeled_latency`` for the server's pool (fused and per-op)
+    beside the fused_decode kernel and the fused step, ``PackedPlan.
+    modeled_latency(fused=True)`` beside the fused IVIM chunk, and the
+    ``model_fidelity`` blocks of the server run (unit token) and the fused
+    IVIM slab (unit voxel), one JSON object a line after its tag. The ratio
+    is reported, not gated: the model prices the card, not the host."""
+    from repro_torch.configs import registry
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.obs import crosscheck
+
+    cfg = registry.get_config(LM_ARCH, mask_samples=LM_MASKS)
+    spec = plan_lib.lower_fused_decode(cfg)
+    rows, max_seq = SRV_SLOTS * LM_MASKS, LM_PROMPT + LM_NEW
+    _phase("pricing", path="decode_step", rows=rows, max_seq=max_seq,
+           modeled_fused_ms=1e3 * plan_lib.decode_modeled_latency(
+               spec, rows, max_seq),
+           modeled_per_op_ms=1e3 * plan_lib.decode_modeled_latency(
+               spec, rows, max_seq, fused=False),
+           kernel_ms=decode_rec["ms"],
+           fused_step_ms=decode_rec["fused_step_ms"],
+           server_kernel_ms=srv["shapes"][SRV_SLOTS]["ms"],
+           server_ms_per_step=srv["ms_per_step"])
+    plan = ivim["plan"]
+    _phase("pricing", path="ivim_chunk", voxels=CHUNK,
+           modeled_fused_ms=1e3 * plan.modeled_latency(CHUNK, fused=True,
+                                                       bytes_per_el=4),
+           kernel_ms=ivim["kernel_ms"],
+           leg_ms_per_chunk=1e3 * ivim["seconds"] / ivim["chunks"])
+    blocks = {
+        "token": crosscheck.model_fidelity(
+            measured_wall_s=srv["seconds"], n_units=srv["lm_tokens"],
+            step_traffic=plan_lib.decode_traffic(spec, rows, max_seq),
+            units_per_step=SRV_SLOTS, unit="token",
+            stages=plan_lib.decode_stage_traffic(spec, rows, max_seq)),
+        "voxel": crosscheck.model_fidelity(
+            measured_wall_s=ivim["seconds"], n_units=ivim["voxels"],
+            step_traffic=plan.traffic(CHUNK, 4, fused=True, moments=True),
+            units_per_step=CHUNK, unit="voxel")}
+    for unit, block in blocks.items():
+        print(f"[pricing] model_fidelity_{unit}= {json.dumps(block)}",
+              flush=True)
 
 
 def moments_phase(dev, time_ms, bound, nbytes) -> dict:
@@ -2025,9 +2439,10 @@ def main() -> int:
             (n_chunks, 0, 0, n_chunks)),
         "plain": (plain_volume, (0, 0, 0, 0)),
     }
-    launches = {}
+    launches, leg_secs = {}, {}
     for leg, (fn, expect) in legs.items():
         (mean, std), secs, counts = run_leg(fn)
+        leg_secs[leg] = secs
         if counts != expect:
             raise AssertionError(f"{leg} leg launches (masked_ffn, samples, "
                                  f"fused moments, moments) = {counts}, "
@@ -2126,9 +2541,20 @@ def main() -> int:
     scan_plan = ivim_model.pack_for_serving(dense_model(LM_MASKS)[1])
     srv = server_phases(dev, time_ms, bound, nbytes, lm_counters, scan_plan,
                         volume)
+
+    # ---- phase 9: the router over three hosts -----------------------------
+    routed = router_phases(dev, lm_counters, scan_plan, volume)
     del volume, scan_plan
 
-    # ---- phase 9: the kernels line, then the device line ------------------
+    # ---- phases 10 and 11: the paper's schedules, the latency model -------
+    sched = schedule_phase(dev, time_ms, lm_counters)
+    main_moments = next(r for r in kernels["fused_plan_moments"]
+                        if r["shape"] == "main")
+    pricing_phase(srv, decode_rec, {
+        "plan": plan, "kernel_ms": main_moments["ms"],
+        "seconds": leg_secs["fused"], "chunks": n_chunks, "voxels": n_vox})
+
+    # ---- phase 12: the kernels line, then the device line -----------------
     main_launches = {"masked_ffn": launches["per_op"][0],
                      "moments": launches["per_op"][3],
                      "fused_plan_samples": samples_launches,
@@ -2177,10 +2603,14 @@ def main() -> int:
                      "library_device_ms")}})
     line.append(decode_rec)
     line.extend(hybrid_recs)
-    for rec in line:       # the server phase's launches beside each kernel
-        if rec["name"] in srv["main"]:
+    for rec in line:       # the server and router runs' launches beside each
+        if rec["name"] in srv["main"]:                           # kernel
             rec["server_launches"] = srv["main"][rec["name"]]
             rec["server_hybrid_launches"] = srv["hybrid"][rec["name"]]
+            rec["router_launches"] = routed["unfaulted"][rec["name"]]
+            rec["router_faulted_launches"] = routed["faulted"][rec["name"]]
+        if rec["name"] == "masked_ffn":
+            rec["schedule_launches"] = sched["masked_ffn"]
     decode_rec["server_shapes"] = {
         f"active_{a}": {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "rel_err")}

@@ -12,10 +12,11 @@ Here the same three ingredients map to
     max(compute, weight + activation bytes over the memory rate).
 
 This model drives the Phase-3 plan (``transform.plan_hardware``,
-``plan.PackedPlan.modeled_latency``). It is a *model*: its one device is
-:data:`H100`, whose constants are the data sheet's except the fill time
-(a chip-run measurement), and measured times come from ``chip_smoke.py``'s
-chip runs (``PERF.md``).
+``plan.PackedPlan.modeled_latency``) and the Fig.-8-style sweep of block
+size against on-chip memory (:func:`grid_sweep`). It is a *model*: its one
+device is :data:`H100`, whose constants are the data sheet's except the
+fill time (a chip-run measurement), and measured times come from
+``chip_smoke.py``'s chip runs (``PERF.md``).
 The formulas are the reference's (``repro.core.latency_model``), so any
 spec with its fields prices as the reference does.
 """
@@ -26,7 +27,8 @@ import dataclasses
 import math
 
 __all__ = ["DeviceSpec", "H100", "matmul_time", "masked_ffn_latency",
-           "RooflineTerms", "roofline_terms"]
+           "RooflineTerms", "roofline_terms", "roofline_seconds",
+           "grid_sweep"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,3 +137,38 @@ def roofline_terms(flops: float, hbm_bytes: float, collective_bytes: float,
     return RooflineTerms(compute_s=flops / spec.peak_flops,
                          memory_s=hbm_bytes / spec.hbm_bw,
                          collective_s=collective_bytes / spec.link_bw)
+
+
+def roofline_seconds(tm, spec: DeviceSpec = H100) -> float:
+    """Eq.-2-analogue latency of one launch set: the roofline over a
+    ``core.scheduler.TrafficModel``'s modeled FLOPs and bytes plus one
+    ``kernel_fill_us`` per launch (``weight_loads`` holds the launch count
+    in the decode and fused pricing)."""
+    terms = roofline_terms(tm.flops, tm.total_bytes, 0.0, spec)
+    return max(terms.compute_s, terms.memory_s) \
+        + tm.weight_loads * spec.kernel_fill_us * 1e-6
+
+
+def grid_sweep(batch: int, d_in: int, keep: int, d_out: int, n_samples: int,
+               spec: DeviceSpec = H100) -> list[dict]:
+    """Fig.-8 analogue: sweep the voxel block (the FPGA's "number of PEs")
+    and report each choice's modeled latency and on-chip footprint (bf16
+    operands, widths padded to ``spec.tile``) against
+    ``spec.onchip_bytes``. A model only: the card's ``masked_ffn`` kernel
+    runs one fixed voxel tile."""
+    out = []
+    for bm in (8, 16, 32, 64, 128, 256, 512):
+        if bm > max(8, batch):
+            break
+        tiles = math.ceil(batch / bm)
+        t = 0.0
+        for _ in range(n_samples):
+            t += matmul_time(bm, d_in, keep, spec) * tiles
+            t += matmul_time(bm, keep, d_out, spec,
+                             weight_resident=True) * tiles
+        di, k, do = (_pad(v, spec.tile) for v in (d_in, keep, d_out))
+        onchip = (bm * di + di * k + k * do + bm * k) * 2
+        out.append({"block_batch": bm, "latency_s": t,
+                    "onchip_bytes": onchip,
+                    "fits_onchip": onchip <= spec.onchip_bytes})
+    return out

@@ -65,7 +65,8 @@ __all__ = ["SharedDense", "PackedPair", "Activation", "OutputHead",
            "pack_ffn_leaves", "ffn_leaves_apply", "lower_fused_decode",
            "compile_decode_step", "decode_fused_spec", "prefill_buckets",
            "prefill_bucket", "prefill_fused_spec", "compile_prefill_step",
-           "decode_stage_traffic", "decode_traffic"]
+           "decode_stage_traffic", "decode_traffic",
+           "decode_modeled_latency"]
 
 #: The one activation table: any name that trains in ``core/transform``
 #: compiles here and lowers to the fused kernels.
@@ -296,6 +297,12 @@ class PackedPlan:
         return sched_lib.TrafficModel(
             weight_bytes=w_bytes, act_bytes=(in_el + out_el) * bytes_per_el,
             flops=flops, weight_loads=n)
+
+    def fused_spec(self) -> fused_ref.FusedSpec:
+        """Static kernel spec of this plan's fused lowering (the key of its
+        cached executor); raises :class:`FusedPlanUnsupported` when the op
+        chain has no fused form."""
+        return lower_fused(self)[0]
 
     def modeled_latency(self, batch: int, *,
                         spec: latency_model.DeviceSpec = latency_model.H100,
@@ -1327,3 +1334,20 @@ def decode_traffic(spec: fused_ref.FusedDecodeSpec, rows: int, max_seq: int,
         act_bytes=sum(t.act_bytes for t in stages.values()),
         flops=sum(t.flops for t in stages.values()),
         weight_loads=sum(t.weight_loads for t in stages.values()))
+
+
+def decode_modeled_latency(spec: fused_ref.FusedDecodeSpec, rows: int,
+                           max_seq: int, *,
+                           device: latency_model.DeviceSpec
+                           = latency_model.H100,
+                           bytes_per_el: int = 2,
+                           fused: bool = True) -> float:
+    """Eq.-2-analogue latency (s) of one pool decode step on ``device`` (a
+    :class:`~repro_torch.core.latency_model.DeviceSpec`): the roofline over
+    :func:`decode_traffic` plus one ``kernel_fill_us`` per launch — the
+    launch term dominates the per-op path at pool-sized batches, which is
+    what the fused decode step removes. A model of the card only: the
+    host's part of a step is not in it."""
+    return latency_model.roofline_seconds(
+        decode_traffic(spec, rows, max_seq, bytes_per_el, fused=fused),
+        device)

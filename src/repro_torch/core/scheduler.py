@@ -9,20 +9,29 @@ orders compute identical results with very different weight traffic:
 * **batch-level** (the paper's scheme): sample-outer, batch-inner — each
   weight set is read once per batch -> ``N`` weight loads.
 
-The port keeps what ``core/plan.py`` and the serving layer consume: the
-chunk partition of the serving engine, the schedule, the serving pool's
-slot layout, and the analytic traffic model the plan's byte/FLOP
-accounting is built from.
+The loop forms here (:func:`run_batch_level`, :func:`run_sampling_level`)
+are plain PyTorch: each ``apply_fn`` call is one sample over one batch or
+chunk, so the order of weight use is the loop order itself. They give the
+reference semantics and the card's timings of the two orders; the kernel
+that runs either order in one launch is ``kernels/masked_ffn``
+(``sample_major=True|False``). The module also holds the chunk partition of
+the serving engine, the serving pool's slot layout, and the analytic
+traffic model the plan's byte/FLOP accounting is built from.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable
 
 import torch
 
-__all__ = ["Schedule", "SlotSchedule", "chunk_bounds", "weight_load_counts",
-           "TrafficModel", "traffic_model"]
+Params = dict[str, Any]
+ApplyFn = Callable[[Params, torch.Tensor, int], torch.Tensor]
+
+__all__ = ["Schedule", "SlotSchedule", "chunk_bounds", "run_sampling_level",
+           "run_batch_level", "run", "weight_load_counts", "TrafficModel",
+           "traffic_model"]
 
 
 def chunk_bounds(n: int, chunk: int) -> tuple[tuple[int, int], ...]:
@@ -101,6 +110,50 @@ class SlotSchedule:
                 f"plan sample axis does not map onto the pool layout: "
                 f"plan {other} vs pool {self} (n_masks must match)")
 
+    def decode_traffic(self, d_in: int, k_hidden: int, d_out: int,
+                       bytes_per_el: int = 2, *,
+                       weight_bytes_per_el: int | None = None
+                       ) -> "TrafficModel":
+        """Per-decode-step FFN traffic of a full pool: the batch-level
+        schedule over ``max_slots`` resident requests — the quantity
+        continuous batching amortizes (weights touched N times a step
+        however many requests are in flight). ``weight_bytes_per_el``
+        prices the weight matrices apart (quantized serving)."""
+        return traffic_model(Schedule("batch"), self.max_slots, self.n_masks,
+                             d_in, k_hidden, d_out, bytes_per_el,
+                             weight_bytes_per_el=weight_bytes_per_el)
+
+
+def run_batch_level(apply_fn: ApplyFn, params: Params, x: torch.Tensor,
+                    n_samples: int) -> torch.Tensor:
+    """Sample-outer loop: the weights of sample i are used once while the
+    whole batch streams through. Returns ``[N, B, ...]``."""
+    return torch.stack([apply_fn(params, x, i) for i in range(n_samples)])
+
+
+def run_sampling_level(apply_fn: ApplyFn, params: Params, x: torch.Tensor,
+                       n_samples: int, chunk: int = 64) -> torch.Tensor:
+    """Voxel-outer loop with an inner sample loop: the FPGA baseline, where
+    every ``chunk`` of voxels re-loads all N weight sets. The batch is
+    zero-padded to a multiple of ``chunk``. Returns ``[N, B, ...]`` (the
+    values of :func:`run_batch_level`)."""
+    b = x.shape[0]
+    if b % chunk:
+        pad = x.new_zeros((chunk - b % chunk,) + tuple(x.shape[1:]))
+        x = torch.cat([x, pad])
+    ys = torch.stack([torch.stack([apply_fn(params, xb, i)
+                                   for i in range(n_samples)])
+                      for xb in x.split(chunk)])   # [B/chunk, N, chunk, ...]
+    ys = ys.movedim(1, 0).reshape(n_samples, -1, *ys.shape[3:])
+    return ys[:, :b]
+
+
+def run(schedule: Schedule, apply_fn: ApplyFn, params: Params,
+        x: torch.Tensor, n_samples: int) -> torch.Tensor:
+    if schedule.kind == "batch":
+        return run_batch_level(apply_fn, params, x, n_samples)
+    return run_sampling_level(apply_fn, params, x, n_samples, schedule.chunk)
+
 
 def weight_load_counts(schedule: Schedule, batch: int, n_samples: int) -> int:
     """Paper §V-D: sampling-level = N × ceil(B/chunk) loads, batch-level =
@@ -121,6 +174,10 @@ class TrafficModel:
     @property
     def total_bytes(self) -> int:
         return self.weight_bytes + self.act_bytes
+
+    @property
+    def arithmetic_intensity(self) -> float:
+        return self.flops / max(1, self.total_bytes)
 
 
 def traffic_model(schedule: Schedule, batch: int, n_samples: int,

@@ -34,8 +34,8 @@ import json
 import time
 from typing import Callable
 
-__all__ = ["Tracer", "TRACER", "span", "event", "default_clock",
-           "ManualClock"]
+__all__ = ["Tracer", "TRACER", "get_tracer", "span", "event",
+           "default_clock", "ManualClock"]
 
 #: The sanctioned serving clock (monotonic; immune to wall-clock steps).
 default_clock: Callable[[], float] = time.monotonic
@@ -165,6 +165,10 @@ class Tracer:
 #: Process tracer (disabled by default — ``ServerConfig(trace=True)``
 #: enables it; a caller sizes it via ``configure(capacity=...)``).
 TRACER = Tracer()
+
+
+def get_tracer() -> Tracer:
+    return TRACER
 
 
 def span(name: str, **attrs):

@@ -491,11 +491,25 @@ class BayesianLMServer:
         self.metrics = MetricsCollector(cfg.max_slots, clock)
 
     # ---- admission ---------------------------------------------------------
+    def _claim_id(self, req_id: int | None) -> int:
+        """Next id from the server counter, or the caller-pinned one (the
+        multi-host router keeps ONE global id space across per-host
+        servers by pinning, so a failover resubmission keeps its id)."""
+        if req_id is None:
+            return next(self._ids)
+        rid = int(req_id)
+        if rid in self.states:
+            raise ValueError(f"req_id {rid} is already tracked by this "
+                             f"server ({self.states[rid].status})")
+        return rid
+
     def submit(self, tokens, *, max_new_tokens: int | None = None,
-               priority: int = 0) -> int:
+               priority: int = 0, req_id: int | None = None) -> int:
         """Enqueue ONE prompt (a 1-D token sequence — submit a batch as
         separate requests); returns the request id. Raises QueueFullError
-        when the admission queue is at max_queue (backpressure)."""
+        when the admission queue is at max_queue (backpressure).
+        ``req_id`` pins the id instead of drawing from the server counter
+        (router failover resubmits under the original global id)."""
         arr = np.asarray(tokens.cpu() if isinstance(tokens, torch.Tensor)
                          else tokens)
         if arr.ndim > 1:
@@ -515,7 +529,7 @@ class BayesianLMServer:
         if not 1 <= mnt <= self.cfg.max_new_tokens:
             raise ValueError(f"max_new_tokens {mnt} outside "
                              f"[1, {self.cfg.max_new_tokens}]")
-        rid = next(self._ids)
+        rid = self._claim_id(req_id)
         st = RequestState(Request(rid, toks, mnt, priority),
                           effective_priority=priority)
         self.states[rid] = st
@@ -527,7 +541,8 @@ class BayesianLMServer:
         return rid
 
     def submit_scan(self, plan, x, *, chunk: int = 4096, priority: int = 0,
-                    fused: bool | None = None) -> int:
+                    fused: bool | None = None, req_id: int | None = None,
+                    resume_results: list | None = None) -> int:
         """Enqueue ONE clinical scan (a compiled ``core.plan.PackedPlan``
         plus its flattened ``[n_voxels, D]`` voxel batch) as a voxel-chunk
         work item; returns the request id.
@@ -539,7 +554,14 @@ class BayesianLMServer:
         runs, so a completed scan's ``scan_moments()`` is bitwise equal to
         the direct path. Admission requires the plan's sample axis to map
         onto the pool layout (``plan.slot_schedule == pool schedule``, i.e.
-        matching n_masks)."""
+        matching n_masks).
+
+        ``req_id`` pins the id (see :meth:`submit`); ``resume_results``
+        seeds the chunk cursor with moments already computed elsewhere —
+        router failover resubmits a scan from a dead host this way, and it
+        resumes at ``len(chunk_results)`` exactly as ``_preempt``
+        re-admission does on one server (chunks never recompute and never
+        complete out of order)."""
         # lazy import: engine imports this module at its top level
         from repro_torch.serving import engine as engine_lib
         self.schedule.admits(plan.slot_schedule(self.cfg.max_slots))
@@ -553,23 +575,32 @@ class BayesianLMServer:
             raise QueueFullError(
                 f"admission queue full ({self.cfg.max_queue})")
         bounds = scheduler_lib.chunk_bounds(x.shape[0], chunk)
+        if resume_results is not None and \
+                len(resume_results) >= len(bounds):
+            raise ValueError(
+                f"resume_results carries {len(resume_results)} chunks but "
+                f"the scan only has {len(bounds)}: nothing left to run")
         runner = engine_lib.plan_chunk_runner(plan, fused=fused,
                                               device=self.device)
-        rid = next(self._ids)
+        rid = self._claim_id(req_id)
         st = RequestState(VoxelScanRequest(rid, x, chunk, bounds, runner,
                                            priority),
                           effective_priority=priority)
+        if resume_results:
+            st.chunk_results = list(resume_results)
         self.states[rid] = st
         heapq.heappush(self._queue, (priority, next(self._seq), rid))
         self.metrics.on_enqueue(rid, modality="voxel")
         self._tracer.event("enqueue", req_id=rid, kind="voxel",
                            n_voxels=int(x.shape[0]), priority=priority,
+                           resumed_chunks=len(resume_results or ()),
                            queue_depth=self.queue_depth)
         return rid
 
     def cancel(self, req_id: int) -> None:
-        """Withdraw a QUEUED work item: its state is evicted and its heap
-        entry becomes a tombstone the admission loop skips. Running or
+        """Withdraw a QUEUED work item (the router's drain hook): its state
+        is evicted and its heap entry becomes a tombstone the admission
+        loop skips. Running or
         finished items cannot be cancelled — preemption is the policy
         surface for resident work."""
         st = self.states.get(req_id)

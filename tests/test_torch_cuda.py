@@ -1101,3 +1101,99 @@ def test_server_on_card(cuda):
         assert st.generated == gen[i, 6:].tolist()
         torch.testing.assert_close(torch.tensor(st.uncertainty),
                                    unc[i].cpu(), rtol=1e-4, atol=1e-5)
+
+
+def test_router_failover_on_card(cuda):
+    """The fault-tolerant router over three hosts on the card: host 1 killed
+    mid-decode and host 0 (the scan's home) mid-scan. Every request
+    completes with the tokens of one unfaulted server and rel-unc within the
+    reference's posterior bar (the fused decode sums across blocks with
+    float atomics, so not bit for bit); the failed-over scan resumes at its
+    chunk cursor and its moments are bitwise the direct predict_volume; a
+    second pass builds no step."""
+    from repro_torch.obs import registry as obs_registry
+    from repro_torch.obs.trace import ManualClock
+    from repro_torch.serving import router as router_lib
+    from repro_torch.serving.faults import FaultEvent, FaultPlan
+    cfg = _SMOKE("qwen2-1.5b", n_layers=2)
+    model = lm_model.build_model(cfg)
+    params = model.init(torch.Generator(cuda).manual_seed(0), device=cuda)
+    icfg = ivim_model.IvimConfig(n_masks=cfg.mask_samples)
+    plan = ivim_model.pack_for_serving(ivim_model.init(
+        icfg, torch.Generator().manual_seed(1), device=cuda))
+    x = torch.rand((45, icfg.width), generator=torch.Generator(
+        cuda).manual_seed(3), device=cuda)
+    direct = engine.predict_volume(plan, x, chunk=8, fused=True, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (6, 6),
+                         generator=torch.Generator().manual_seed(4))
+    scfg = server.ServerConfig(max_slots=2, max_prompt_len=8,
+                               max_new_tokens=5, fused=True)
+    single = server.BayesianLMServer(model, params, scfg, device=cuda)
+    srids = [single.submit(t) for t in toks]
+    single.run()
+    faults = FaultPlan(events=(FaultEvent(step=2, host=1, action="kill"),
+                               FaultEvent(step=3, host=0, action="kill")))
+    rcfg = router_lib.RouterConfig(n_hosts=3, heartbeat_timeout_s=2.5,
+                                   max_retries=4)
+    for warm in (True, False):
+        clock = ManualClock()
+        router = router_lib.ServingRouter(model, params, scfg, rcfg,
+                                          device=cuda, faults=faults,
+                                          clock=clock)
+        builds = obs_registry.REGISTRY.value("step_builds_total")
+        router._rr = 0                   # the scan's home is host 0
+        rs = router.submit_scan(plan, x, chunk=8, fused=True)
+        rids = [router.submit(t) for t in toks]
+        s = router.run(max_steps=300, tick=lambda: clock.advance(1.0))
+        assert (s.host_deaths, s.lost, s.shed, s.completed) == (2, 0, 0, 7)
+        assert router.result(rs).retries >= 1 and s.remeshes >= 1
+        if not warm:
+            assert obs_registry.REGISTRY.value("step_builds_total") == builds
+    for g, w in zip(router.result(rs).scan_moments(), direct):
+        assert torch.equal(g, w)
+    for r, q in zip(rids, srids):
+        got, want = router.result(r), single.result(q)
+        assert got.generated == want.generated
+        torch.testing.assert_close(torch.tensor(got.uncertainty),
+                                   torch.tensor(want.uncertainty),
+                                   rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("batch", [4096, 100])
+def test_schedule_orders_on_card(cuda, batch):
+    """The paper's schedules on the card at the dense IVIM widths: the
+    Masksembles layer mask by mask (the baseline), the packed form,
+    ``scheduler.run`` batch- and sampling-level (a ragged batch padded to
+    the 64-voxel chunk) and ``masked_ffn`` in both grid orders, all within
+    2e-5 of the baseline's magnitude (fp32-accurate products), the
+    kernel's two orders bit-equal."""
+    from repro_torch.core import masksembles, packing, scheduler
+    w, n = 104, 8
+    gen = torch.Generator(cuda).manual_seed(0)
+    p = masksembles.masked_ffn_init(gen, w, w, w, masks_lib.MaskSpec(
+        width=w, n_masks=n, scale=2.0, seed=0))
+    for layer in ("fc1", "fc2"):
+        p[layer]["b"] = 0.1 * torch.randn(w, generator=gen, device=cuda)
+    x = torch.rand((batch, w), generator=gen, device=cuda)
+    pk = packing.pack_masked_ffn(p["fc1"]["w"], p["fc1"]["b"], p["fc2"]["w"],
+                                 p["fc2"]["b"], p["fc1"]["masks"])
+
+    def per_sample(params, xb, i):
+        return packing.packed_ffn_apply(params, xb, sample=i)
+
+    base = torch.stack([masksembles.masked_ffn_apply(
+        p, x, torch.full((batch,), i, device=cuda)) for i in range(n)])
+    before = mops.masked_ffn.launches
+    k_batch = mops.masked_ffn(x, pk["w1p"], pk["b1p"], pk["w2p"], pk["b2"],
+                              sample_major=True)
+    k_samp = mops.masked_ffn(x, pk["w1p"], pk["b1p"], pk["w2p"], pk["b2"],
+                             sample_major=False)
+    assert mops.masked_ffn.launches == before + 2
+    assert torch.equal(k_batch, k_samp)
+    for out in (packing.packed_ffn_apply(pk, x),
+                scheduler.run(scheduler.Schedule("batch"), per_sample, pk, x,
+                              n),
+                scheduler.run(scheduler.Schedule("sampling", chunk=64),
+                              per_sample, pk, x, n), k_batch):
+        assert out.shape == base.shape
+        assert float((out - base).abs().max() / base.abs().max()) <= 2e-5

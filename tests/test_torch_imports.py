@@ -16,7 +16,7 @@ from repro_torch.ivim import evaluate as ivim_eval
 from repro_torch.ivim import model as ivim_model
 from repro_torch.ivim import train as ivim_train
 from repro_torch.models import model as lm_model
-from repro_torch.serving import engine, server
+from repro_torch.serving import engine, router, server
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -35,15 +35,18 @@ def test_port_imports_no_jax_and_no_reference():
         "for n in ('models.rglru', 'kernels.rglru_scan.ops',\n"
         "          'kernels.flash_attention.ops', 'kernels.moments.ops',\n"
         "          'kernels.moments.ref', 'core.transform',\n"
-        "          'core.latency_model', 'ivim.train', 'ivim.evaluate'):\n"
+        "          'core.latency_model', 'ivim.train', 'ivim.evaluate',\n"
+        "          'serving.router', 'serving.faults',\n"
+        "          'distributed.straggler', 'distributed.elastic',\n"
+        "          'obs.crosscheck'):\n"
         "    assert 'repro_torch.' + n in names, names\n"
-        "assert len(names) >= 49, names\n"
+        "assert len(names) >= 60, names\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(SRC),
                          capture_output=True, text=True, timeout=120,
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 49
+    assert int(out.stdout.strip()) >= 60
 
 
 def _tiny_plan():
@@ -67,6 +70,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: engine.generate(lm, {}, toks),
         lambda: engine.serve_uncertain(lm, {}, toks),
         lambda: server.step_fns(lm),
+        lambda: router.ServingRouter(lm, {}),
         lambda: plan_lib.compile_decode_step(cfg),
         lambda: lm.init(torch.Generator().manual_seed(0)),
         lambda: engine.predict_volume(plan, x[None]),
