@@ -47,6 +47,15 @@ and read just after:
   one server.
 * The paper's schedules (§V-C/D, Fig. 5, Table II) at the dense IVIM
   widths, and the H100 latency model beside what the card measured.
+* The remaining backbones at their published widths (bf16, random
+  weights, 4 masks; depth cut where the weights or the time need it:
+  ``BB_PHASES``): phi3.5-moe (4 of 32 layers) and arctic-480b (1 of 35,
+  its dense residual on) at their published capacities, xlstm-350m (all
+  24), qwen2-vl-72b (2 of 80) each serving the LM traffic through
+  ``serve_uncertain`` (per-op decode, exact prefill), qwen2-vl also over
+  embeddings with an 8x8 image grid's M-RoPE positions; hubert-xlarge (all
+  48) through ``forward`` over 4 clips x 4 masks of 500 frames, with a
+  posterior per frame.
 
 Phases, each on its own line; any failure raises and exits nonzero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -156,9 +165,26 @@ Phases, each on its own line; any failure raises and exits nonzero:
      pool beside the measured kernel and step, the IVIM plan's fused
      ``modeled_latency`` beside its chunk, and the ``model_fidelity``
      blocks (unit token: the server run; unit voxel: the fused slab);
- 12. one JSON line with every kernel's numbers (the server's and the
+ 12. the remaining backbones: ``flash_attention`` against its plain
+     version and SDPA at hubert's non-causal [16, 16, 500, 80] and at the
+     causal prefills of phi3.5 [32, 32, 128, 128], arctic [32, 56, 128,
+     128] and qwen2-vl [32, 64, 128, 128] (8 KV heads each), ``moments``
+     at every new posterior (vocabularies 32,064, 32,000, 50,304, 152,064;
+     [4, 2000, 504] and [4, 4000, 504] frames) (``[bb_kernel]``); then
+     ``[backbone_moe]``, ``[backbone_arctic]``, ``[backbone_xlstm]``,
+     ``[backbone_vlm]`` (and its embeddings prefill, with one decode step
+     from the cache it leaves) and ``[backbone_encoder]``,
+     each with prefill (forward) ms, ms a decode step, decode tokens/s and
+     peak memory, its launches asserted (flash once an attention layer a
+     prefill or forward, ``moments`` once a posterior, no
+     ``fused_decode``), no step build or fused fallback in the timed run,
+     finite outputs; and ``[backbone_agreement]``: fp32 at full width and
+     cut depth, prefill(s+1) against prefill(s) + one decode step within
+     TOL_HY_PATH (phi3.5 at the dropless capacity, xlstm, qwen2-vl);
+ 13. one JSON line with every kernel's numbers (the server's and the
      router's launches as ``server_launches``, ``router_launches`` and
-     ``router_faulted_launches``), then the device line.
+     ``router_faulted_launches``, the backbone phases' as
+     ``backbone_launches`` by architecture), then the device line.
 
 Weights are random from ``torch.Generator`` seeds (IVIM: seed 0 with
 non-trivial BN running statistics from seed 1; LM: seed 0); the data is
@@ -299,6 +325,25 @@ FLASH_BF16_V_SHARE = 2.0 ** -8
 TOL_HY_PATH = 1e-3
 
 
+# the backbone phases: each remaining family at its published widths, bf16,
+# random weights, 4 masks, depth cut to fit the card and the time (tag, arch,
+# layers kept): the LM traffic above through serve_uncertain; qwen2-vl also
+# over embeddings with an 8x8 image grid's M-RoPE positions; hubert-xlarge's
+# forward at full depth over 4 clips x 4 masks of 500 frames
+BB_PHASES = (("backbone_moe", "phi3.5-moe-42b-a6.6b", 4),
+             ("backbone_arctic", "arctic-480b", 1),
+             ("backbone_xlstm", "xlstm-350m", 24),
+             ("backbone_vlm", "qwen2-vl-72b", 2))
+BB_VL_GRID = 8
+ENC_ARCH, ENC_CLIPS, ENC_FRAMES = "hubert-xlarge", 4, 500
+# fp32 prefill-vs-step agreement at full width and cut depth (arch, layers:
+# xlstm's 4 hold 3 mLSTM and 1 sLSTM), held to TOL_HY_PATH; phi3.5 at the
+# dropless capacity E/top_k (its smoke config's), so the prompt's routing
+# groups cannot drop a token that the step keeps
+BB_AGREE = (("phi3.5-moe-42b-a6.6b", 2), ("xlstm-350m", 4),
+            ("qwen2-vl-72b", 2))
+
+
 def _phase(phase: str, /, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
@@ -331,6 +376,39 @@ def device_ms(fn, reps: int = 10):
     if len(spans) < reps or not sum(spans):
         return "not measured"
     return sum(spans) / reps / 1e3
+
+
+def call_profile(fn, reps: int = 3) -> dict:
+    """The wall ms of a call of ``fn`` (ending in a synchronize) under the
+    profiler, the card's busy ms in it (its kernels' device events) and
+    that share of the wall time, the kernels a call and the ten longest by
+    name (µs a call, count a call); "not measured" where the trace holds
+    no device event."""
+    import torch
+    prof = torch.profiler
+    with prof.profile(activities=[prof.ProfilerActivity.CPU,
+                                  prof.ProfilerActivity.CUDA]) as trace:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t) / reps
+    per_kernel: dict[str, list] = {}
+    for e in trace.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            acc = per_kernel.setdefault(e.name, [0.0, 0])
+            acc[0] += e.time_range.elapsed_us() / reps
+            acc[1] += 1
+    dev_ms = sum(us for us, _ in per_kernel.values()) / 1e3
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"wall_ms": f"{wall_ms:.3f}",
+            "device_ms": f"{dev_ms:.3f}" if dev_ms else "not measured",
+            "device_busy_share": f"{dev_ms / wall_ms:.3f}" if dev_ms
+            else "not measured",
+            "kernels": sum(n for _, n in per_kernel.values()) // reps,
+            "top_kernels_us": [(name[:50], round(us, 1), n // reps)
+                               for name, (us, n) in top]}
 
 
 def _within_bf16_ulp(got, want) -> float:
@@ -687,6 +765,66 @@ def _leaves(tree):
         yield tree
 
 
+def flash_case(gen, dev, time_ms, bound, nbytes, name, dims, dt,
+               causal) -> dict:
+    """``flash_attention`` against its plain version at q [b, h, s, dh] and
+    k/v [b, hkv, s, dh] in ``dt``, with SDPA (``library_ms``) and the
+    profiler's device times beside it; raises beyond the bar (fp32:
+    TOL_FLASH_F32 relative; bf16: one ulp plus FLASH_BF16_V_SHARE max|v|).
+    Returns the record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    b, h, hkv, s, dh = dims
+    q, k, v = (torch.randn((b, n, s, dh), generator=gen, device=dev)
+               .to(dt) for n in (h, hkv, hkv))
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    want = fa_ref.flash_attention_ref(q, k, v, causal=causal)
+    err = (got.float() - want.float()).abs()
+    extra = {}
+    if dt == torch.bfloat16:
+        ulp = (want.float().abs().clamp_min(1e-30).log2().floor()
+               - 7).exp2()
+        limit = ulp + FLASH_BF16_V_SHARE * v.float().abs().max()
+        extra["beyond_1ulp"] = int((err > ulp).sum())
+        # both against the same attention in fp32 (p never rounded)
+        exact = fa_ref.flash_attention_ref(q.float(), k.float(),
+                                           v.float(), causal=causal)
+        extra["kernel_err_vs_fp32"] = float((got.float() - exact)
+                                            .abs().max())
+        extra["plain_err_vs_fp32"] = float((want.float() - exact)
+                                           .abs().max())
+        del exact
+    else:
+        limit = TOL_FLASH_F32 * (1 + want.abs())
+    if got.dtype != dt or not bool((err <= limit).all()):
+        raise AssertionError(f"flash_attention {name}: max abs error "
+                             f"{float(err.max())} beyond its limit")
+
+    def lib(q=q, k=k, v=v, causal=causal):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              enable_gqa=True)
+
+    pairs = s * (s + 1) // 2 if causal else s * s
+    rec = {"shape": name, "dims": [b, h, hkv, s, dh], "dtype": dt,
+           "causal": causal, "max_abs_err": float(err.max()), **extra,
+           "library_max_abs_err": float((lib().float() - want.float())
+                                        .abs().max()),
+           "ms": time_ms(lambda: fa_ops.flash_attention(q, k, v,
+                                                        causal=causal)),
+           "plain_ms": time_ms(lambda: fa_ref.flash_attention_ref(
+               q, k, v, causal=causal), 5),
+           "library_ms": time_ms(lib),
+           "device_ms": device_ms(lambda: fa_ops.flash_attention(
+               q, k, v, causal=causal)),
+           "library_device_ms": device_ms(lib)}
+    rec["bound_ms"], rec["bound_by"] = bound(
+        4 * b * h * pairs * dh, nbytes(q, k, v, got),
+        BF16_PEAK if dt == torch.bfloat16 else FP32_PEAK)
+    return rec
+
+
 def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
     """Phases 6 and 7: ``rglru_scan`` and ``flash_attention`` against their
     plain versions, then recurrentgemma-2b served at full width and depth,
@@ -696,10 +834,7 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
     import dataclasses
 
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import registry
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.rglru_scan import ops as sc_ops
     from repro_torch.kernels.rglru_scan import ref as sc_ref
     from repro_torch.models import model as lm_model, transformer
@@ -745,54 +880,10 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
             ("qwen_fp32", 32, 12, 2, LM_PROMPT, 128, torch.float32, True),
             ("qwen_full", 32, 12, 2, LM_PROMPT, 128, torch.bfloat16, False),
             ("ragged", 3, 4, 2, 129, 80, torch.bfloat16, True)):
-        q, k, v = (torch.randn((b, n, s, dh), generator=gen, device=dev)
-                   .to(dt) for n in (h, hkv, hkv))
-        got = fa_ops.flash_attention(q, k, v, causal=causal)
-        want = fa_ref.flash_attention_ref(q, k, v, causal=causal)
-        err = (got.float() - want.float()).abs()
-        extra = {}
-        if dt == torch.bfloat16:
-            ulp = (want.float().abs().clamp_min(1e-30).log2().floor()
-                   - 7).exp2()
-            limit = ulp + FLASH_BF16_V_SHARE * v.float().abs().max()
-            extra["beyond_1ulp"] = int((err > ulp).sum())
-            # both against the same attention in fp32 (p never rounded)
-            exact = fa_ref.flash_attention_ref(q.float(), k.float(),
-                                               v.float(), causal=causal)
-            extra["kernel_err_vs_fp32"] = float((got.float() - exact)
-                                                .abs().max())
-            extra["plain_err_vs_fp32"] = float((want.float() - exact)
-                                               .abs().max())
-            del exact
-        else:
-            limit = TOL_FLASH_F32 * (1 + want.abs())
-        if got.dtype != dt or not bool((err <= limit).all()):
-            raise AssertionError(f"flash_attention {name}: max abs error "
-                                 f"{float(err.max())} beyond its limit")
-
-        def lib(q=q, k=k, v=v, causal=causal):
-            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                                  enable_gqa=True)
-
-        pairs = s * (s + 1) // 2 if causal else s * s
-        rec = {"shape": name, "dims": [b, h, hkv, s, dh], "dtype": dt,
-               "causal": causal, "max_abs_err": float(err.max()), **extra,
-               "library_max_abs_err": float((lib().float() - want.float())
-                                            .abs().max()),
-               "ms": time_ms(lambda: fa_ops.flash_attention(q, k, v,
-                                                            causal=causal)),
-               "plain_ms": time_ms(lambda: fa_ref.flash_attention_ref(
-                   q, k, v, causal=causal), 5),
-               "library_ms": time_ms(lib),
-               "device_ms": device_ms(lambda: fa_ops.flash_attention(
-                   q, k, v, causal=causal)),
-               "library_device_ms": device_ms(lib)}
-        rec["bound_ms"], rec["bound_by"] = bound(
-            4 * b * h * pairs * dh, nbytes(q, k, v, got),
-            BF16_PEAK if dt == torch.bfloat16 else FP32_PEAK)
+        rec = flash_case(gen, dev, time_ms, bound, nbytes, name,
+                         (b, h, hkv, s, dh), dt, causal)
         _phase("hy_kernel", name="flash_attention", **rec)
         flash[name] = rec
-        del q, k, v, got, want, err, limit
     torch.cuda.empty_cache()
 
     # ---- phase 7: the hybrid main path -------------------------------------
@@ -834,33 +925,13 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
                         if "kpos" in c for t in c.values()))
     tok = mean.argmax(-1).to(torch.int32).repeat(LM_MASKS)[:, None]
     step_ms = time_ms(lambda: fns.decode(params, caches, tok, LM_PROMPT), 5)
-    prof = torch.profiler
-    with prof.profile(activities=[prof.ProfilerActivity.CPU,
-                                  prof.ProfilerActivity.CUDA]) as trace:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(3):
-            fns.decode(params, caches, tok, LM_PROMPT)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t) / 3
-
-    # the kernels' own events (their device time), summed by kernel name
-    per_kernel: dict[str, list] = {}
-    for e in trace.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            acc = per_kernel.setdefault(e.name, [0.0, 0])
-            acc[0] += e.time_range.elapsed_us() / 3
-            acc[1] += 1
-    dev_ms = sum(us for us, _ in per_kernel.values()) / 1e3
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
-    _phase("hy_decode_profile", wall_ms_per_step=f"{wall_ms:.3f}",
-           device_ms_per_step=f"{dev_ms:.3f}" if dev_ms else "not measured",
-           device_busy_share=f"{dev_ms / wall_ms:.3f}" if dev_ms
-           else "not measured",
-           kernels_per_step=sum(n for _, n in per_kernel.values()) // 3,
-           top_kernels_us_per_step=[(name[:50], round(us, 1), n // 3)
-                                    for name, (us, n) in top])
-    del caches, mean, tok, trace, per_kernel, top
+    prof = call_profile(lambda: fns.decode(params, caches, tok, LM_PROMPT))
+    _phase("hy_decode_profile", wall_ms_per_step=prof["wall_ms"],
+           device_ms_per_step=prof["device_ms"],
+           device_busy_share=prof["device_busy_share"],
+           kernels_per_step=prof["kernels"],
+           top_kernels_us_per_step=prof["top_kernels_us"])
+    del caches, mean, tok
     reset()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1748,6 +1819,318 @@ def schedule_phase(dev, time_ms, counters) -> dict:
     return {"masked_ffn": kernel_launches, "ms": ms}
 
 
+def backbone_phases(dev, time_ms, bound, nbytes, counters) -> dict:
+    """Phase 12: the remaining backbones. ``flash_attention`` and
+    ``moments`` against their plain versions at the shapes these families
+    give them; then each of phi3.5-moe, arctic, xlstm and qwen2-vl served
+    at its published widths (``BB_PHASES``: depth cut, bf16, random
+    weights, 4 masks) through ``serve_uncertain`` on the LM traffic, and
+    hubert-xlarge's ``forward`` with a posterior per frame, each with its
+    launches asserted (``counters`` as for :func:`lm_phases`) and no step
+    build or fused fallback in the timed run; then the fp32 prefill-vs-step
+    agreement (``BB_AGREE``). Returns the launches by family and the kernel
+    records."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core import uncertainty as unc
+    from repro_torch.models import model as lm_model, transformer
+    from repro_torch.serving import engine, server
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(7)
+    out = {"flash_attention": {}, "moments": {}, "flash_cases": {},
+           "moments_cases": {}}
+
+    def memory_mark() -> float:
+        """Peak memory counts from here; returns what is held already (the
+        earlier phases' tensors), reported beside each phase's peak."""
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated() / 1e9
+
+    def fallbacks() -> int:
+        return (sum(server.fallback_counts.values())
+                + sum(engine.fallback_counts.values()))
+
+    def expect(tag, got, flash, moments):
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        want.update(flash_attention=flash, moments=moments)
+        if got != want:
+            raise AssertionError(f"{tag} launches {got}, expected {want}")
+
+    # ---- the kernels at the new shapes -------------------------------------
+    for name, dims, causal in (
+            ("hubert_full", (LM_MASKS * ENC_CLIPS, 16, 16, ENC_FRAMES, 80),
+             False),
+            ("phi_prefill", (LM_MASKS * LM_BATCH, 32, 8, LM_PROMPT, 128),
+             True),
+            ("arctic_prefill", (LM_MASKS * LM_BATCH, 56, 8, LM_PROMPT, 128),
+             True),
+            ("vl_prefill", (LM_MASKS * LM_BATCH, 64, 8, LM_PROMPT, 128),
+             True)):
+        rec = flash_case(gen, dev, time_ms, bound, nbytes, name, dims,
+                         torch.bfloat16, causal)
+        _phase("bb_kernel", name="flash_attention", **rec)
+        out["flash_cases"][name] = rec
+    for name, shape in (
+            ("phi_posterior", (LM_MASKS, LM_BATCH, 32064)),
+            ("arctic_posterior", (LM_MASKS, LM_BATCH, 32000)),
+            ("xlstm_posterior", (LM_MASKS, LM_BATCH, 50304)),
+            ("vl_posterior", (LM_MASKS, LM_BATCH, 152064)),
+            ("hubert_posterior", (LM_MASKS, ENC_CLIPS * ENC_FRAMES, 504)),
+            ("hubert_posterior_8", (LM_MASKS, 8 * ENC_FRAMES, 504))):
+        rec = moments_case(gen, dev, time_ms, bound, nbytes, name, shape,
+                           torch.float32)
+        _phase("bb_kernel", name="moments", **rec)
+        out["moments_cases"][name] = rec
+    torch.cuda.empty_cache()
+
+    # ---- the decoder families on the LM traffic ----------------------------
+    max_seq = LM_PROMPT + LM_NEW
+    for tag, arch, layers in BB_PHASES:
+        full = registry.get_config(arch, mask_samples=LM_MASKS)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        kinds = [k for seg in cfg.segments() for _ in range(seg.reps)
+                 for k in seg.pattern]
+        n_attn = sum(k in ("attn", "moe") for k in kinds)
+        held = memory_mark()
+        model = lm_model.build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        if cfg.moe_dense_residual and \
+                "dense" not in params["segments"][0]["b0"]["moe"]:
+            raise AssertionError(f"{arch}: no dense residual FFN")
+        prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                                generator=torch.Generator(dev).manual_seed(1),
+                                device=dev, dtype=torch.int32)
+        fns = server.step_fns(model, device=dev)    # built before the run
+        if fns.fused_spec is not None or fns.prefill_spec is not None:
+            raise AssertionError(f"{arch} took a fused lowering")
+        pool = prompts.repeat(LM_MASKS, 1)
+        fns.prefill(params, pool, max_seq=max_seq)          # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mean, _, caches = fns.prefill(params, pool, max_seq=max_seq)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        cache_bytes = nbytes(*_leaves(caches))
+        tok = mean.argmax(-1).to(torch.int32).repeat(LM_MASKS)[:, None]
+        step_ms = time_ms(lambda: fns.decode(params, caches, tok,
+                                             LM_PROMPT), 5)
+        for call, fn in (("prefill", lambda: fns.prefill(
+                params, pool, max_seq=max_seq)), ("decode_step", lambda:
+                fns.decode(params, caches, tok, LM_PROMPT))):
+            _phase("backbone_profile", arch=arch, call=call,
+                   **call_profile(fn, 1 if call == "prefill" else 3))
+        del mean, caches, tok
+        builds, fell = _step_builds(), fallbacks()
+        _reset_counts(counters)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gen_toks, rel, _ = engine.serve_uncertain(
+            model, params, prompts, engine.ServeConfig(max_new_tokens=LM_NEW),
+            device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = _launch_counts(counters)
+        expect(tag, counts, n_attn, 1 + LM_NEW)
+        if (_step_builds(), fallbacks()) != (builds, fell):
+            raise AssertionError(f"{arch}: a step build or a fused "
+                                 f"fallback in the timed run")
+        if gen_toks.shape != (LM_BATCH, LM_PROMPT + LM_NEW) \
+                or not bool(torch.isfinite(rel).all()) \
+                or not bool(((gen_toks >= 0)
+                             & (gen_toks < cfg.vocab_size)).all()):
+            raise AssertionError(f"{arch} output {tuple(gen_toks.shape)}, "
+                                 f"finite {bool(torch.isfinite(rel).all())}")
+        loop_ms = 1e3 * (secs - prefill_s) / LM_NEW
+        out["flash_attention"][arch] = counts["flash_attention"]
+        out["moments"][arch] = counts["moments"]
+        _phase(tag, arch=arch, layers=f"{layers}/{full.n_layers}",
+               kinds=sorted(set(kinds)), dtype=cfg.dtype,
+               params=sum(t.numel() for t in _leaves(params)),
+               param_gbytes=nbytes(*_leaves(params)) / 1e9,
+               d_model=cfg.d_model, heads=cfg.n_heads,
+               kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
+               experts=cfg.n_experts, top_k=cfg.top_k,
+               capacity_factor=cfg.capacity_factor, vocab=cfg.vocab_size,
+               masks=LM_MASKS, init_s=f"{init_s:.2f}",
+               seconds=f"{secs:.4f}", prefill_ms=f"{1e3 * prefill_s:.3f}",
+               decode_ms_per_step=f"{loop_ms:.3f}",
+               decode_step_ms_events=f"{step_ms:.3f}",
+               tokens_per_s=f"{LM_BATCH * LM_NEW / secs:.1f}",
+               decode_tokens_per_s=f"{1e3 * LM_BATCH / loop_ms:.1f}",
+               cache_mbytes=cache_bytes / 1e6, held_gbytes=held,
+               peak_gbytes=torch.cuda.max_memory_allocated() / 1e9,
+               rel_unc_mean=float(rel.mean()), launches=counts)
+        del gen_toks, rel
+        if cfg.m_rope_sections:
+            vl_embeds_leg(cfg, params, dev, counters, expect, n_attn)
+        del model, params, fns, prompts, pool
+        torch.cuda.empty_cache()
+
+    # ---- the encoder: forward over embeddings, a posterior per frame ------
+    cfg = registry.get_config(ENC_ARCH, mask_samples=LM_MASKS)
+    held = memory_mark()
+    model = lm_model.build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0), device=dev)
+    clips = torch.randn((ENC_CLIPS, ENC_FRAMES, cfg.d_model), generator=gen,
+                        device=dev).to(cfg.dtype)
+    pool = clips.repeat(LM_MASKS, 1, 1)                     # mask-major
+    ids = torch.arange(LM_MASKS, device=dev).repeat_interleave(ENC_CLIPS)
+
+    def encode():
+        logits, _ = model.forward(params, {"embeds": pool}, mask_ids=ids,
+                                  device=dev)
+        logp = torch.log_softmax(logits.float(), -1)
+        return unc.predictive_moments(
+            logp.reshape(LM_MASKS, ENC_CLIPS * ENC_FRAMES, -1))
+
+    encode()                                                # warm
+    builds = _step_builds()
+    _reset_counts(counters)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mean, std = encode()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    counts = _launch_counts(counters)
+    expect("backbone_encoder", counts, cfg.n_layers, 1)
+    if _step_builds() != builds:
+        raise AssertionError("encoder: a step build in the timed run")
+    frames = ENC_CLIPS * ENC_FRAMES
+    if mean.shape != (frames, cfg.vocab_size) or std.shape != mean.shape \
+            or not bool(torch.isfinite(mean).all()) \
+            or not bool((std >= 0).all()):
+        raise AssertionError(f"encoder posterior {tuple(mean.shape)}")
+    fwd_ms = time_ms(encode, 3)
+    _phase("backbone_profile", arch=ENC_ARCH, call="forward",
+           **call_profile(encode, 2))
+    out["flash_attention"][ENC_ARCH] = counts["flash_attention"]
+    out["moments"][ENC_ARCH] = counts["moments"]
+    _phase("backbone_encoder", arch=ENC_ARCH,
+           layers=f"{cfg.n_layers}/{cfg.n_layers}", dtype=cfg.dtype,
+           params=sum(t.numel() for t in _leaves(params)),
+           param_gbytes=nbytes(*_leaves(params)) / 1e9, d_model=cfg.d_model,
+           heads=cfg.n_heads, head_dim=cfg.resolved_head_dim,
+           d_ff=cfg.d_ff, vocab=cfg.vocab_size, masks=LM_MASKS,
+           clips=ENC_CLIPS, frames=ENC_FRAMES, seconds=f"{secs:.4f}",
+           forward_ms=f"{fwd_ms:.3f}", decode="none (encoder-only)",
+           frames_per_s=f"{1e3 * frames / fwd_ms:.1f}", held_gbytes=held,
+           peak_gbytes=torch.cuda.max_memory_allocated() / 1e9,
+           rel_std_mean=float(std.mean()), launches=counts)
+    del model, params, clips, pool, mean, std
+    torch.cuda.empty_cache()
+
+    # ---- fp32 at full width: prefill(s+1) against prefill(s) + a step -----
+    for arch, layers in BB_AGREE:
+        base = registry.get_config(arch, mask_samples=LM_MASKS)
+        over = dict(n_layers=layers, dtype=torch.float32)
+        if base.n_experts:          # dropless: no token dropped either way
+            over["capacity_factor"] = base.n_experts / base.top_k
+        cfg = dataclasses.replace(base, **over)
+        n_attn = sum(seg.reps * sum(k in ("attn", "moe") for k in
+                                    seg.pattern) for seg in cfg.segments())
+        p = transformer.init(cfg, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (LM_MASKS, LM_PROMPT + 1),
+                             generator=torch.Generator(dev).manual_seed(5),
+                             device=dev, dtype=torch.int32)
+        _reset_counts(counters)
+        full, _ = transformer.prefill(cfg, p, {"tokens": toks},
+                                      max_seq=LM_PROMPT + 1)
+        torch.cuda.synchronize()
+        full_counts = _launch_counts(counters)
+        _, caches = transformer.prefill(cfg, p, {"tokens": toks[:, :-1]},
+                                        max_seq=LM_PROMPT + 1)
+        _reset_counts(counters)
+        step, _ = transformer.decode_step(cfg, p, caches, toks[:, -1:],
+                                          LM_PROMPT)
+        torch.cuda.synchronize()
+        step_counts = _launch_counts(counters)
+        expect(f"{arch} agreement prefill", full_counts, n_attn, 0)
+        expect(f"{arch} agreement step", step_counts, 0, 0)
+        la = torch.log_softmax(full.float(), -1)
+        lb = torch.log_softmax(step.float(), -1)
+        err = float((la - lb).abs().max())
+        if not err <= TOL_HY_PATH:
+            raise AssertionError(f"{arch}: prefill vs prefill+step "
+                                 f"log-probs differ by {err} > "
+                                 f"{TOL_HY_PATH}")
+        _phase("backbone_agreement", arch=arch, layers=layers,
+               dtype=cfg.dtype, capacity_factor=cfg.capacity_factor,
+               rows=LM_MASKS, s=LM_PROMPT, max_abs_err_logp=err,
+               tol=TOL_HY_PATH, argmax_equal=bool(torch.equal(
+                   la.argmax(-1), lb.argmax(-1))),
+               prefill_flash=full_counts["flash_attention"])
+        del p, caches, full, step, la, lb
+        torch.cuda.empty_cache()
+    _phase("backbone_summary", seconds=f"{time.perf_counter() - t_phase:.1f}",
+           flash_launches=out["flash_attention"],
+           moments_launches=out["moments"])
+    return out
+
+
+def vl_positions(seq: int, grid: int, device):
+    """Qwen2-VL's M-RoPE positions [3, seq] for a ``grid x grid`` image
+    followed by text: the image's tokens share temporal position 0 and
+    walk the grid's rows and columns; the text continues every stream
+    from one past the image's largest position."""
+    import torch
+    n = grid * grid
+    i = torch.arange(n, device=device)
+    image = torch.stack([torch.zeros_like(i), i // grid, i % grid])
+    text = torch.arange(seq - n, device=device) + grid
+    return torch.cat([image, text.expand(3, -1)], 1)
+
+
+def vl_embeds_leg(cfg, params, dev, counters, expect, n_attn) -> None:
+    """qwen2-vl's vision-language form: a prefill over embeddings [rows,
+    S, D] with M-RoPE positions [3, rows, S] (an image grid, then text)
+    and its posterior, then one decode step by tokens at the rows'
+    sequence index (the cache slot, as in the reference) to show that the
+    cache it leaves decodes. The decode loop itself is the tokens leg's."""
+    import torch
+    from repro_torch.core import uncertainty as unc
+    from repro_torch.models import transformer
+    rows = LM_MASKS * LM_BATCH
+    emb = torch.randn((rows, LM_PROMPT, cfg.d_model),
+                      generator=torch.Generator(dev).manual_seed(2),
+                      device=dev).to(cfg.dtype)
+    pos = vl_positions(LM_PROMPT, BB_VL_GRID, dev)[:, None].expand(
+        3, rows, LM_PROMPT)
+    ids = torch.arange(LM_MASKS, device=dev).repeat_interleave(LM_BATCH)
+    batch = {"embeds": emb, "positions": pos}
+
+    def prefill():
+        logits, caches = transformer.prefill(
+            cfg, params, batch, max_seq=LM_PROMPT + 1, mask_ids=ids)
+        return unc.token_posterior(logits, LM_MASKS), caches
+
+    prefill()                                               # warm
+    _reset_counts(counters)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    (mean, rel), caches = prefill()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    counts = _launch_counts(counters)
+    expect("backbone_vlm embeds", counts, n_attn, 1)
+    tok = mean.argmax(-1).to(torch.int32).repeat(LM_MASKS)[:, None]
+    step, _ = transformer.decode_step(cfg, params, caches, tok, LM_PROMPT,
+                                      mask_ids=ids)
+    if not bool(torch.isfinite(rel).all()) \
+            or not bool(torch.isfinite(step).all()):
+        raise AssertionError("qwen2-vl embeds leg: non-finite output")
+    _phase("backbone_vlm", leg="embeds", rows=rows, grid=BB_VL_GRID,
+           positions=list(pos.shape), prefill_ms=f"{1e3 * prefill_s:.3f}",
+           peak_gbytes=torch.cuda.max_memory_allocated() / 1e9,
+           rel_unc_mean=float(rel.mean()), launches=counts)
+
+
 def pricing_phase(srv: dict, decode_rec: dict, ivim: dict) -> None:
     """Phase 11: the H100 latency model beside what the card measured —
     ``decode_modeled_latency`` for the server's pool (fused and per-op)
@@ -1793,6 +2176,53 @@ def pricing_phase(srv: dict, decode_rec: dict, ivim: dict) -> None:
               flush=True)
 
 
+def moments_case(gen, dev, time_ms, bound, nbytes, name, shape,
+                 dt) -> dict:
+    """The moments kernel against its plain version and ``torch.std_mean``
+    (the one PyTorch call that computes the same function:
+    ``library_ms``) on random samples of ``shape`` in ``dt``, with the
+    profiler's device times; raises beyond the reference's bar (bf16: one
+    bf16 ulp). Returns the record."""
+    import torch
+    from repro_torch.kernels.moments import ops as mo_ops
+    from repro_torch.kernels.moments import ref as mo_ref
+    x = torch.randn(shape, generator=gen, device=dev).to(dt)
+    got, want = mo_ops.moments(x), mo_ref.moments_ref(x)
+    torch.cuda.synchronize()
+    if dt == torch.bfloat16:            # one bf16 ulp of the plain value
+        for g, w in zip(got, want):
+            g, w = g.float(), w.float()
+            ulp = (w.abs().clamp_min(1e-30).log2().floor() - 7).exp2()
+            if not bool(((g - w).abs() <= ulp).all()):
+                raise AssertionError(f"moments {name}: beyond one bf16 "
+                                     f"ulp, {float((g - w).abs().max())}")
+    else:
+        torch.testing.assert_close(got[0], want[0], **TOL_MO_MEAN)
+        torch.testing.assert_close(got[1], want[1], **TOL_MO_STD)
+    lib_std, lib_mean = torch.std_mean(x, dim=0, correction=0)
+
+    def lib(x=x):
+        return torch.std_mean(x, dim=0, correction=0)
+
+    rec = {"shape": name, "dims": list(shape), "dtype": dt,
+           "register_bucket": mo_ops.register_bucket(shape[0]),
+           "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                              for g, w in zip(got, want)),
+           "library_max_abs_err": max(
+               float((g.float() - w.float()).abs().max())
+               for g, w in zip((lib_mean, lib_std), want)),
+           "ms": time_ms(lambda: mo_ops.moments(x)),
+           "plain_ms": time_ms(lambda: mo_ref.moments_ref(x)),
+           "library_ms": time_ms(lib),
+           "device_ms": device_ms(lambda: mo_ops.moments(x)),
+           "library_device_ms": device_ms(lib)}
+    # about 4 flops a sample (sum, center, square-add); inputs read
+    # once, the two outputs written once
+    rec["bound_ms"], rec["bound_by"] = bound(4 * x.numel(),
+                                             nbytes(x, *got))
+    return rec
+
+
 def moments_phase(dev, time_ms, bound, nbytes) -> dict:
     """Phase 2b: the moments kernel against its plain version and against
     ``torch.std_mean`` (the one PyTorch call that computes the same
@@ -1800,7 +2230,6 @@ def moments_phase(dev, time_ms, bound, nbytes) -> dict:
     the records by shape."""
     import torch
     from repro_torch.kernels.moments import ops as mo_ops
-    from repro_torch.kernels.moments import ref as mo_ref
 
     gen = torch.Generator(dev).manual_seed(6)
     recs = {}
@@ -1815,43 +2244,10 @@ def moments_phase(dev, time_ms, bound, nbytes) -> dict:
             ("n65", (65, 65536, 4), torch.float32),     # past 64: the reread
             ("ragged", (3, 4097, 5), torch.float32),
             ("bf16", (8, CHUNK, 4), torch.bfloat16)):
-        x = torch.randn(shape, generator=gen, device=dev).to(dt)
-        got, want = mo_ops.moments(x), mo_ref.moments_ref(x)
-        torch.cuda.synchronize()
-        if dt == torch.bfloat16:            # one bf16 ulp of the plain value
-            for g, w in zip(got, want):
-                g, w = g.float(), w.float()
-                ulp = (w.abs().clamp_min(1e-30).log2().floor() - 7).exp2()
-                if not bool(((g - w).abs() <= ulp).all()):
-                    raise AssertionError(f"moments {name}: beyond one bf16 "
-                                         f"ulp, {float((g - w).abs().max())}")
-        else:
-            torch.testing.assert_close(got[0], want[0], **TOL_MO_MEAN)
-            torch.testing.assert_close(got[1], want[1], **TOL_MO_STD)
-        lib_std, lib_mean = torch.std_mean(x, dim=0, correction=0)
-
-        def lib(x=x):
-            return torch.std_mean(x, dim=0, correction=0)
-
-        rec = {"shape": name, "dims": list(shape), "dtype": dt,
-               "register_bucket": mo_ops.register_bucket(shape[0]),
-               "max_abs_err": max(float((g.float() - w.float()).abs().max())
-                                  for g, w in zip(got, want)),
-               "library_max_abs_err": max(
-                   float((g.float() - w.float()).abs().max())
-                   for g, w in zip((lib_mean, lib_std), want)),
-               "ms": time_ms(lambda: mo_ops.moments(x)),
-               "plain_ms": time_ms(lambda: mo_ref.moments_ref(x)),
-               "library_ms": time_ms(lib),
-               "device_ms": device_ms(lambda: mo_ops.moments(x)),
-               "library_device_ms": device_ms(lib)}
-        # about 4 flops a sample (sum, center, square-add); inputs read
-        # once, the two outputs written once
-        rec["bound_ms"], rec["bound_by"] = bound(4 * x.numel(),
-                                                 nbytes(x, *got))
+        rec = moments_case(gen, dev, time_ms, bound, nbytes, name, shape,
+                           dt)
         _phase("moments_kernel", **rec)
         recs[name] = rec
-        del x, got, want, lib_std, lib_mean
     for value in (1.0, -0.375):             # a constant: std exactly 0
         mean, std = mo_ops.moments(torch.full((8, CHUNK, 4), value,
                                               device=dev))
@@ -2554,7 +2950,10 @@ def main() -> int:
         "plan": plan, "kernel_ms": main_moments["ms"],
         "seconds": leg_secs["fused"], "chunks": n_chunks, "voxels": n_vox})
 
-    # ---- phase 12: the kernels line, then the device line -----------------
+    # ---- phase 12: the remaining backbones ---------------------------------
+    bb = backbone_phases(dev, time_ms, bound, nbytes, lm_counters)
+
+    # ---- phase 13: the kernels line, then the device line -----------------
     main_launches = {"masked_ffn": launches["per_op"][0],
                      "moments": launches["per_op"][3],
                      "fused_plan_samples": samples_launches,
@@ -2611,6 +3010,14 @@ def main() -> int:
             rec["router_faulted_launches"] = routed["faulted"][rec["name"]]
         if rec["name"] == "masked_ffn":
             rec["schedule_launches"] = sched["masked_ffn"]
+        if rec["name"] in bb:               # the backbone phases' launches
+            rec["backbone_launches"] = bb[rec["name"]]
+            cases = bb["flash_cases" if rec["name"] == "flash_attention"
+                       else "moments_cases"]
+            rec.update({f"{n}_{k}": r[k] for n, r in cases.items()
+                        for k in ("ms", "library_ms", "bound_ms",
+                                  "device_ms", "library_device_ms",
+                                  "max_abs_err")})
     decode_rec["server_shapes"] = {
         f"active_{a}": {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "rel_err")}

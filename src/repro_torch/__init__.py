@@ -12,13 +12,14 @@ Ported so far:
   ``serving.engine.predict_volume``, through the ``fused_plan`` kernel
   (moments mode; samples mode for ``packed_apply``) with ``masked_ffn`` as
   the per-op tier.
-* Bayesian LM serving on dense attention stacks: ``configs``, ``models``
-  (layers, transformer, model), ``serving.engine.generate`` and
-  ``serve_uncertain`` over ``serving.server.step_fns``, whose decode step
-  is the ``fused_decode`` kernel (one cooperative launch per step) with
-  the per-op ``models.transformer.decode_step`` as the fallback. MoE,
-  recurrent, xLSTM, M-RoPE and encoder-only models raise
-  ``NotImplementedError``.
+* Bayesian LM serving for every architecture of the registry: ``configs``,
+  ``models`` (layers, transformer, model; rglru, moe and xlstm blocks,
+  M-RoPE, and ``forward`` for the encoder-only stack),
+  ``serving.engine.generate`` and ``serve_uncertain`` over
+  ``serving.server.step_fns``, whose decode step on dense attention
+  stacks is the ``fused_decode`` kernel (one cooperative launch per step)
+  with the per-op ``models.transformer.decode_step`` for the rest; the
+  continuous-batching server and the multi-host router over it.
 
 Dispatch is by tensor device: a kernel wrapper given a CPU tensor runs the
 plain PyTorch version beside it (``ref.py``); given a CUDA tensor it launches

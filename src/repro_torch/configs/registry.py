@@ -1,8 +1,7 @@
 """Exact public configs of the 10 architectures (+ reduced smoke variants):
 the port's copy of ``repro.configs.registry``, with ``torch`` dtypes.
 
-Only the dense attention families build in this port so far; the registry
-still lists every architecture, since it defines shapes only.
+Every architecture listed here builds in the port (``models.model``).
 """
 
 from __future__ import annotations

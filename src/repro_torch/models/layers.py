@@ -1,5 +1,6 @@
-"""Functional layers of the dense transformer (the port's twin of
-``repro.models.layers``, attention/FFN/embedding half).
+"""Functional layers of the transformer stacks (the port's twin of
+``repro.models.layers``: norms, RoPE and M-RoPE, attention, FFN,
+embeddings).
 
 Parameters are plain nested dicts of tensors, as in the reference, with the
 same leaf names (wq/wk/wv/wo, wg/wu/wd, embed/unembed, masks), so a
@@ -24,16 +25,19 @@ from repro_torch.distributed import compression
 Params = dict[str, Any]
 
 __all__ = ["dense_init", "dense", "norm_init", "norm_apply", "rope_cos_sin",
-           "apply_rope", "attn_init", "attention_full", "attention_chunked",
+           "mrope_cos_sin", "apply_rope", "attn_init", "attention_full", "attention_chunked",
            "attention_banded", "attention_decode", "kv_store_dtype",
            "quantize_kv", "kv_cache_shapes", "init_kv_cache",
-           "kv_cache_update", "ffn_init", "ffn_apply",
+           "kv_cache_update", "ffn_init", "ffn_apply", "mask_table",
            "embed_init", "embed_tokens", "lm_head"]
 
 
 def _randn(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
-    return (torch.randn(shape, generator=gen, device=gen.device)
-            * scale).to(dtype)
+    """Normal draws times ``scale`` in ``dtype``; scaled in place, so one
+    fp32 draw is alive at a time (arctic's expert stack is 17.8 GB in
+    fp32)."""
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(
+        scale).to(dtype)
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -98,6 +102,26 @@ def rope_cos_sin(positions: torch.Tensor, rot_dim: int, theta: float
                                     device=positions.device) / half)
     ang = positions[..., None].float() * freqs
     return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_cos_sin(positions: torch.Tensor, rot_dim: int, theta: float,
+                  sections: tuple[int, ...]
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL M-RoPE. positions [3, ...] (temporal/height/width streams);
+    sections partition the rot_dim/2 frequency slots among the streams."""
+    if sum(sections) != rot_dim // 2:
+        raise ValueError(
+            f"mrope sections {sections} must sum to rot_dim/2 = "
+            f"{rot_dim // 2} — each frequency slot belongs to exactly "
+            "one position stream")
+    cos, sin = rope_cos_sin(positions, rot_dim, theta)  # [3, ..., half]
+    parts_c, parts_s = [], []
+    off = 0
+    for i, sec in enumerate(sections):
+        parts_c.append(cos[i, ..., off:off + sec])
+        parts_s.append(sin[i, ..., off:off + sec])
+        off += sec
+    return torch.cat(parts_c, -1), torch.cat(parts_s, -1)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
@@ -352,12 +376,17 @@ def ffn_init(gen: torch.Generator, cfg, d_ff: int | None = None,
         p = {"wu": dense_init(gen, d, f, dtype, bias=True),
              "wd": dense_init(gen, f, d, dtype, bias=True)}
     if cfg.bayesian:
-        spec = masks_lib.MaskSpec(width=f, n_masks=cfg.mask_samples,
-                                  scale=cfg.mask_scale, seed=cfg.mask_seed)
-        p["masks"] = torch.from_numpy(
-            masks_lib.generate_masks(spec).astype(np.float32)).to(
-                device=gen.device, dtype=dtype)
+        p["masks"] = mask_table(cfg, f, dtype, gen.device)
     return p
+
+
+def mask_table(cfg, width: int, dtype, device) -> torch.Tensor:
+    """The config's fixed Masksembles masks over ``width`` hidden units,
+    [N, width] in ``dtype`` (the reference's ``generate_masks``)."""
+    spec = masks_lib.MaskSpec(width=width, n_masks=cfg.mask_samples,
+                              scale=cfg.mask_scale, seed=cfg.mask_seed)
+    return torch.from_numpy(masks_lib.generate_masks(spec).astype(
+        np.float32)).to(device=device, dtype=dtype)
 
 
 def ffn_apply(p: Params, x: torch.Tensor, cfg,

@@ -1,8 +1,9 @@
-"""Model facade: one object per architecture config, the serving half of
-``repro.models.model`` (training — the loss — arrives with slice 5).
+"""Model facade: one object per architecture config, the inference half of
+``repro.models.model`` (training — the loss — is not ported yet).
 
     model = build_model(get_config("qwen2-1.5b", mask_samples=4))
     params = model.init(torch.Generator("cuda").manual_seed(0))
+    logits, aux = model.forward(params, {"tokens": tokens})  # or embeds
     logits, cache = model.prefill(params, {"tokens": tokens}, max_seq=M)
     logits, cache = model.decode_step(params, cache, tok, pos)
 """
@@ -30,6 +31,12 @@ class Model:
              device: torch.device | str | None = None) -> Params:
         return transformer.init(self.cfg, generator, device=device)
 
+    def forward(self, params: Params, batch: Params,
+                mask_ids: torch.Tensor | None = None,
+                device: torch.device | str | None = None):
+        return transformer.forward(self.cfg, params, batch,
+                                   mask_ids=mask_ids, device=device)
+
     def prefill(self, params: Params, batch: Params,
                 max_seq: int | None = None):
         return transformer.prefill(self.cfg, params, batch, max_seq=max_seq)
@@ -48,9 +55,6 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    """The model of ``cfg`` (dense and local-attention stacks, and the
-    hybrid RecurrentGemma family); raises ``NotImplementedError`` for what
-    is not ported yet: MoE and xLSTM blocks, M-RoPE and encoder-only
-    models."""
-    transformer.check_supported(cfg)
+    """The model of ``cfg``: every family of the registry (dense, MoE,
+    hybrid, audio encoder, vision-language with M-RoPE, xLSTM)."""
     return Model(cfg)

@@ -1,21 +1,35 @@
-"""The transformer stack of the serving path (the port's twin of
-``repro.models.transformer``): attention blocks and RecurrentGemma's
-recurrent (``rec``) blocks.
+"""The model stack of every registry architecture (the port's twin of
+``repro.models.transformer``).
+
+Block kinds:
+  attn       — global GQA attention + (masked) FFN      [dense/audio/vlm]
+  local_attn — sliding-window attention + FFN           [hybrid]
+  moe        — GQA attention + mixture-of-experts FFN   [moe]
+  rec        — RG-LRU recurrent block + FFN             [hybrid]
+  mlstm      — xLSTM matrix-memory block                [ssm]
+  slstm      — xLSTM scalar-memory block                [ssm]
 
 Parameters keep the reference's layout: ``params["segments"][si]["b{bi}"]``
 with every leaf stacked ``[reps, ...]`` over the segment's repeats, plus
 ``embed`` and ``final_norm``; caches are ``[reps, batch, ...]`` per block
-(k/v/kpos for attention, the fp32 ``h`` and the conv window for ``rec``).
-The stack runs as a Python loop over layers (serving needs no scan and no
-rematerialisation). MoE and xLSTM blocks, M-RoPE and encoder-only models
-are not ported yet and raise ``NotImplementedError`` at init.
+(k/v/kpos for attention, the fp32 ``h`` and the conv window for ``rec``,
+the fp32 C/n/m and c/n/h/m of the xLSTM blocks). The stack runs as a
+Python loop over layers (serving needs no scan and no rematerialisation).
+Positions are one stream, or M-RoPE's three (temporal, height, width:
+qwen2-vl); audio and vision prompts arrive as ``embeds`` from a stubbed
+frontend.
 
-The causal prefill attention runs the ``flash_attention`` kernel whenever
-the window does not cut the prompt; each ``rec`` block's prefill runs the
-``rglru_scan`` kernel (``models/rglru.py``).
+Prefill attention runs the ``flash_attention`` kernel — causal whenever
+the window does not cut the prompt, and the full (non-causal) attention of
+the encoder-only stack; each ``rec`` block's prefill runs the
+``rglru_scan`` kernel (``models/rglru.py``). MoE and xLSTM blocks reach no
+kernel of their own (``models/moe.py``, ``models/xlstm.py``).
 
 Entry points:
-  prefill(params, {tokens})               — prompt -> last logits + caches
+  forward(params, {tokens|embeds})        — logits at every position
+                                            (inference; the encoder's only
+                                            entry point)
+  prefill(params, {tokens|embeds})        — prompt -> last logits + caches
   decode_step(params, caches, tokens, pos) — one-token serving step
 
 Masksembles rides through every FFN via ``mask_ids``: fixed masks over the
@@ -34,53 +48,52 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import masksembles
 from repro_torch.core import plan as plan_lib
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models import layers, rglru
+from repro_torch.models import layers, rglru, xlstm
+from repro_torch.models import moe as moe_lib
 
 Params = dict[str, Any]
 
-#: Block kinds the port builds.
-BLOCK_KINDS = frozenset({"attn", "local_attn", "rec"})
-
-__all__ = ["check_supported", "init", "params_from_jax", "init_cache",
-           "cache_specs", "cache_scatter_rows", "cache_gather_rows",
-           "cache_reset_rows", "cache_trim_positions", "pack_ffn_params",
-           "prefill", "decode_step"]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not build yet."""
-    kinds = {k for seg in cfg.segments() for k in seg.pattern}
-    if not kinds <= BLOCK_KINDS or cfg.m_rope_sections or not cfg.causal:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: block kinds {sorted(kinds)}, M-RoPE and "
-            f"encoder-only models are not ported yet (MoE and xLSTM blocks "
-            f"are the rest of slice 4 of the port); it builds causal "
-            f"stacks of {sorted(BLOCK_KINDS)} blocks")
+__all__ = ["init", "params_from_jax", "init_cache", "cache_specs",
+           "cache_scatter_rows", "cache_gather_rows", "cache_reset_rows",
+           "cache_trim_positions", "pack_ffn_params", "forward", "prefill",
+           "decode_step"]
 
 
 def _stack(trees: list) -> Any:
+    """Stack leaves over repeats; one repeat is a view (no copy: a 1-layer
+    arctic-480b holds 27 GB of experts)."""
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+    return trees[0][None] if len(trees) == 1 else torch.stack(trees)
 
 
 def _block_init(kind: str, cfg: ModelConfig, gen: torch.Generator,
                 dtype) -> Params:
     d = cfg.d_model
-    mixer = ({"rec": rglru.rec_block_init(gen, cfg, dtype)} if kind == "rec"
-             else {"attn": layers.attn_init(gen, cfg, dtype)})
+    if kind == "mlstm":
+        return xlstm.mlstm_block_init(gen, cfg, dtype)
+    if kind == "slstm":
+        return xlstm.slstm_block_init(gen, cfg, dtype)
+    if kind == "rec":
+        mixer = {"rec": rglru.rec_block_init(gen, cfg, dtype)}
+    elif kind in ("attn", "local_attn", "moe"):
+        mixer = {"attn": layers.attn_init(gen, cfg, dtype)}
+    else:
+        raise ValueError(f"unknown block kind {kind}")
+    ffn = ({"moe": moe_lib.moe_init(gen, cfg, dtype)} if kind == "moe"
+           else {"ffn": layers.ffn_init(gen, cfg, dtype=dtype)})
     return {"norm1": layers.norm_init(d, cfg.norm, dtype, gen.device),
             **mixer,
             "norm2": layers.norm_init(d, cfg.norm, dtype, gen.device),
-            "ffn": layers.ffn_init(gen, cfg, dtype=dtype)}
+            **ffn}
 
 
 @torch.no_grad()
 def init(cfg: ModelConfig, generator: torch.Generator,
          device: torch.device | str | None = None) -> Params:
     """Random parameters drawn from ``generator`` (on its device), moved to
-    ``device`` (None -> the card). Segment leaves are stacked over repeats."""
-    check_supported(cfg)
+    ``device`` (None -> the card). Segment leaves are stacked over repeats;
+    an unknown block kind raises ``ValueError``."""
     dev = device_lib.resolve(device)
     dtype = cfg.dtype
     params: Params = {"segments": []}
@@ -128,11 +141,22 @@ def _block_cache_shapes(kind: str, cfg: ModelConfig, batch: int,
                         max_seq: int) -> dict[str, tuple]:
     if kind == "rec":
         return rglru.rec_state_specs(batch, cfg, cfg.dtype)
+    if kind == "mlstm":
+        return xlstm.mlstm_state_specs(batch, cfg, cfg.dtype)
+    if kind == "slstm":
+        return xlstm.slstm_state_specs(batch, cfg, cfg.dtype)
+    if kind not in ("attn", "local_attn", "moe"):
+        raise ValueError(kind)
     s = (min(cfg.local_window or max_seq, max_seq)
          if kind == "local_attn" else max_seq)
     return layers.kv_cache_shapes(batch, cfg.n_kv_heads, s,
                                   cfg.resolved_head_dim, cfg.dtype,
                                   cfg.kv_dtype)
+
+
+#: Leaves that start at another value than 0: an empty KV slot's position,
+#: and the xLSTM stabiliser, whose first step's max must take its gate.
+_CACHE_FILL = {"kpos": -1, "m": xlstm.NEG}
 
 
 def _cache_shapes(cfg: ModelConfig, batch: int, max_seq: int):
@@ -145,10 +169,10 @@ def _cache_shapes(cfg: ModelConfig, batch: int, max_seq: int):
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device: torch.device | str | None = None):
-    """Empty caches (k/v, int8 scales and recurrent state zero, kpos -1) on
-    ``device`` (None -> card)."""
+    """Empty caches on ``device`` (None -> card): k/v, int8 scales and
+    recurrent state zero, kpos -1, the xLSTM ``m`` at ``xlstm.NEG``."""
     dev = device_lib.resolve(device)
-    return [{b: {name: torch.full(shape, -1 if name == "kpos" else 0,
+    return [{b: {name: torch.full(shape, _CACHE_FILL.get(name, 0),
                                   dtype=dt, device=dev)
                  for name, (shape, dt) in leaves.items()}
              for b, leaves in seg.items()}
@@ -160,7 +184,7 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int):
     return _cache_shapes(cfg, batch, max_seq)
 
 
-# Every cache leaf — k/v/kpos, the int8 scales and the recurrent h/conv
+# Every cache leaf — k/v/kpos, the int8 scales and the recurrent state
 # alike — is shaped [reps, batch, ...]: batch rides on axis 1. The three
 # helpers below are the slot-pool contract of serving/server.py: a pooled
 # cache is a cache whose batch axis is the slot-row axis. Functional, like
@@ -193,9 +217,10 @@ def cache_gather_rows(pool, rows):
 
 def cache_reset_rows(pool, row_mask):
     """Clear the rows where ``row_mask`` [B] is True: k/v, the int8 scales
-    and the recurrent state to zero, kpos to -1 (empty) — the init state.
-    The server runs this when a slot group is freed, so unoccupied rows
-    stay observably empty."""
+    and the recurrent state to zero, kpos to -1 (empty). The server runs
+    this when a slot group is freed, so unoccupied rows stay observably
+    empty. The xLSTM ``m`` goes to 0 too, not to its init value, as in the
+    reference: admission overwrites every leaf of the row."""
     out = []
     for seg in pool:
         new = {}
@@ -241,11 +266,18 @@ def cache_trim_positions(caches, length: int):
 
 
 def _rope(cfg: ModelConfig, positions: torch.Tensor):
-    """positions [S] or [B,S] -> cos/sin broadcastable against [B,H,S,dh]."""
+    """positions [S] or [B,S] (M-RoPE: [3,S] or [3,B,S]; one stream is
+    broadcast to the three) -> cos/sin broadcastable against [B,H,S,dh]."""
     dh = cfg.resolved_head_dim
     rot = int(dh * cfg.rope_pct)
     rot -= rot % 2
-    cos, sin = layers.rope_cos_sin(positions, rot, cfg.rope_theta)
+    if cfg.m_rope_sections:
+        if positions.ndim == 1 or positions.shape[0] != 3:
+            positions = positions.expand((3,) + tuple(positions.shape))
+        cos, sin = layers.mrope_cos_sin(positions, rot, cfg.rope_theta,
+                                        cfg.m_rope_sections)
+    else:
+        cos, sin = layers.rope_cos_sin(positions, rot, cfg.rope_theta)
     if cos.ndim == 2:          # [S, half] -> [1, 1, S, half]
         return cos[None, None], sin[None, None]
     return cos[:, None], sin[:, None]     # [B, S, half] -> [B, 1, S, half]
@@ -253,6 +285,8 @@ def _rope(cfg: ModelConfig, positions: torch.Tensor):
 
 def _attention_sublayer(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
                         mode: str, kind: str, cache, pos):
+    """Attention sub-layer of attn/local_attn/moe blocks -> (x, new cache;
+    None in ``forward`` mode)."""
     h, hkv = cfg.n_heads, cfg.n_kv_heads
     xn = layers.norm_apply(p["norm1"], x, cfg.norm)
     q = layers.split_heads(layers.dense(p["attn"]["wq"], xn), h)
@@ -262,6 +296,7 @@ def _attention_sublayer(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
     q = layers.apply_rope(q, cos, sin, cfg.rope_pct)
     k = layers.apply_rope(k, cos, sin, cfg.rope_pct)
     window = cfg.local_window if kind == "local_attn" else 0
+    new_cache = None
     if mode == "decode":
         new_cache = layers.kv_cache_update(cache, k, v, pos, window)
         attn = layers.attention_decode(q, new_cache["k"], new_cache["v"],
@@ -272,12 +307,13 @@ def _attention_sublayer(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
         s = x.shape[1]
         if window and s > window:
             attn = layers.attention_banded(q, k, v, window=window)
-        elif cfg.causal and cfg.attn_scores_f32:
-            # the flash kernel (plain version on the CPU); for s <= window
-            # the window mask is a no-op: qpos - window < 0 <= kpos
+        elif cfg.attn_scores_f32 and (cfg.causal or not window):
+            # the flash kernel (plain version on the CPU): a causal prompt
+            # (for s <= window the window mask is a no-op: qpos - window <
+            # 0 <= kpos), or the encoder's full attention (Sq == Skv)
             attn = flash_ops.flash_attention(
-                q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
-                chunk=cfg.attn_chunk)
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                causal=cfg.causal, chunk=cfg.attn_chunk)
         elif s > cfg.attn_chunk and cfg.causal:
             attn = layers.attention_chunked(q, k, v, causal=True,
                                             chunk=cfg.attn_chunk,
@@ -286,40 +322,59 @@ def _attention_sublayer(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
             attn = layers.attention_full(q, k, v, causal=cfg.causal,
                                          window=window,
                                          scores_f32=cfg.attn_scores_f32)
-        # the last min(s, smax) positions land at slot = pos % smax — the
-        # decode step's slot formula (smax == window for local attention)
-        smax = cache["k"].shape[2]
-        if s > smax and (not window or smax < window):
-            raise ValueError(f"prompt length {s} exceeds cache capacity "
-                             f"{smax}; raise max_seq")
-        keep = min(s, smax)
-        kept_pos = torch.arange(s - keep, s, dtype=torch.int64,
-                                device=x.device)
-        slots = kept_pos % smax
-        store = layers.kv_store_dtype(k.dtype, cfg.kv_dtype)
-        kk, vk = k[:, :, -keep:], v[:, :, -keep:]
-        new_cache = {}
-        if cfg.kv_dtype == "int8":      # empty slots keep a zero scale
-            kk, k_sc = layers.quantize_kv(kk)
-            vk, v_sc = layers.quantize_kv(vk)
-            for name, sc in (("kscale", k_sc), ("vscale", v_sc)):
-                new_cache[name] = torch.zeros_like(cache[name])
-                new_cache[name][:, :, slots] = sc
-        ks = torch.zeros_like(cache["k"], dtype=store)
-        vs = torch.zeros_like(cache["v"], dtype=store)
-        ks[:, :, slots] = kk.to(store)
-        vs[:, :, slots] = vk.to(store)
-        kpos = torch.full((smax,), -1, dtype=torch.int32, device=x.device)
-        kpos[slots] = kept_pos.to(torch.int32)
-        new_cache.update(k=ks, v=vs,
-                         kpos=kpos[None].expand(x.shape[0], smax).clone())
+        if mode == "prefill":
+            new_cache = _prefill_kv_cache(cfg, cache, k, v, window)
     out = layers.dense(p["attn"]["wo"], layers.merge_heads(attn))
     return x + out, new_cache
 
 
+def _prefill_kv_cache(cfg: ModelConfig, cache, k: torch.Tensor,
+                      v: torch.Tensor, window: int):
+    """The prompt's k/v [B, Hkv, S, dh] as a cache shaped like ``cache``:
+    the last min(s, smax) positions land at slot = pos % smax — the decode
+    step's slot formula (smax == window for local attention)."""
+    b, _, s, _ = k.shape
+    smax = cache["k"].shape[2]
+    if s > smax and (not window or smax < window):
+        raise ValueError(f"prompt length {s} exceeds cache capacity "
+                         f"{smax}; raise max_seq")
+    keep = min(s, smax)
+    kept_pos = torch.arange(s - keep, s, dtype=torch.int64, device=k.device)
+    slots = kept_pos % smax
+    store = layers.kv_store_dtype(k.dtype, cfg.kv_dtype)
+    kk, vk = k[:, :, -keep:], v[:, :, -keep:]
+    new_cache = {}
+    if cfg.kv_dtype == "int8":      # empty slots keep a zero scale
+        kk, k_sc = layers.quantize_kv(kk)
+        vk, v_sc = layers.quantize_kv(vk)
+        for name, sc in (("kscale", k_sc), ("vscale", v_sc)):
+            new_cache[name] = torch.zeros_like(cache[name])
+            new_cache[name][:, :, slots] = sc
+    ks = torch.zeros_like(cache["k"], dtype=store)
+    vs = torch.zeros_like(cache["v"], dtype=store)
+    ks[:, :, slots] = kk.to(store)
+    vs[:, :, slots] = vk.to(store)
+    kpos = torch.full((smax,), -1, dtype=torch.int32, device=k.device)
+    kpos[slots] = kept_pos.to(torch.int32)
+    new_cache.update(k=ks, v=vs, kpos=kpos[None].expand(b, smax).clone())
+    return new_cache
+
+
 def _block_apply(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                  mode: str, rope, mask_ids, cache, pos):
-    """x [B,S,D] (prefill) or [B,1,D] (decode) -> (x, new cache)."""
+    """x [B,S,D] (forward/prefill) or [B,1,D] (decode) -> (x, new cache,
+    MoE aux loss or None). ``forward`` mode builds no cache."""
+    if kind in ("mlstm", "slstm"):
+        if mode == "decode":
+            step = (xlstm.mlstm_block_step if kind == "mlstm"
+                    else xlstm.slstm_block_step)
+            y, new_cache = step(p, x[:, 0], cache, cfg, mask_ids=mask_ids)
+            y = y[:, None, :]
+        else:
+            apply = (xlstm.mlstm_block_apply if kind == "mlstm"
+                     else xlstm.slstm_block_apply)
+            y, new_cache = apply(p, x, cfg, mask_ids=mask_ids)
+        return x + y, (None if mode == "forward" else new_cache), None
     if kind == "rec":
         xn = layers.norm_apply(p["norm1"], x, cfg.norm)
         if mode == "decode":
@@ -329,34 +384,46 @@ def _block_apply(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         else:
             y, new_cache = rglru.rec_block_apply(p["rec"], xn, cfg)
         x = x + y
-    elif kind in ("attn", "local_attn"):
+        if mode == "forward":
+            new_cache = None
+    elif kind in ("attn", "local_attn", "moe"):
         x, new_cache = _attention_sublayer(cfg, p, x, rope, mode, kind,
                                            cache, pos)
     else:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+        raise ValueError(kind)
     xn = layers.norm_apply(p["norm2"], x, cfg.norm)
+    if kind == "moe":
+        y, aux = moe_lib.moe_apply(p["moe"], xn, cfg, mask_ids=mask_ids)
+        return x + y, new_cache, aux
     return x + layers.ffn_apply(p["ffn"], xn, cfg, mask_ids=mask_ids), \
-        new_cache
+        new_cache, None
 
 
 def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
-               mode: str, rope, mask_ids, caches, pos=None):
-    """Every layer in order; returns (x, caches stacked [reps, ...])."""
-    new_caches = []
+               mode: str, rope, mask_ids, caches=None, pos=None):
+    """Every layer in order; returns (x, caches stacked [reps, ...] — None
+    in ``forward`` mode —, the summed MoE aux loss, fp32)."""
+    new_caches = [] if mode != "forward" else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, seg in enumerate(cfg.segments()):
-        sp, sc = params["segments"][si], caches[si]
+        sp = params["segments"][si]
+        sc = caches[si] if caches is not None else None
         outs = []
         for r in range(seg.reps):
             rc = {}
             for i, kind in enumerate(seg.pattern):
                 bp = plan_lib.tree_map(lambda a, r=r: a[r], sp[f"b{i}"])
-                bc = {k: t[r] for k, t in sc[f"b{i}"].items()}
-                x, rc[f"b{i}"] = _block_apply(kind, cfg, bp, x, mode=mode,
-                                              rope=rope, mask_ids=mask_ids,
-                                              cache=bc, pos=pos)
+                bc = ({k: t[r] for k, t in sc[f"b{i}"].items()}
+                      if sc is not None else None)
+                x, rc[f"b{i}"], a = _block_apply(
+                    kind, cfg, bp, x, mode=mode, rope=rope,
+                    mask_ids=mask_ids, cache=bc, pos=pos)
+                if a is not None:
+                    aux = aux + a
             outs.append(rc)
-        new_caches.append(_stack(outs))
-    return x, new_caches
+        if new_caches is not None:
+            new_caches.append(_stack(outs))
+    return x, new_caches, aux
 
 
 # ---------------------------------------------------------------------------
@@ -369,14 +436,17 @@ def pack_ffn_params(cfg: ModelConfig, params: Params) -> Params:
     """Checkpoint conversion: masked-FFN weights -> per-sample packed
     serving weights (mask-zero skipping, paper §V-C), through
     ``core.plan.pack_ffn_leaves``. Use with ``dataclasses.replace(cfg,
-    packed_ffn_serving=True)``; exact vs the masked form."""
+    packed_ffn_serving=True)``; exact vs the masked form. Only dense FFN
+    blocks pack: MoE experts (arctic's dense residual among them) and the
+    xLSTM blocks' internal masks keep the multiply form, as in the
+    reference."""
     new = dict(params)
     new["segments"] = []
     for seg in params["segments"]:
         out = {}
         for name, block in seg.items():
             block = dict(block)
-            if "masks" in block["ffn"]:
+            if "ffn" in block and "masks" in block["ffn"]:
                 # masks are identical across repeats (one seed per config)
                 block["ffn"] = plan_lib.pack_ffn_leaves(
                     block["ffn"], block["ffn"]["masks"][0])
@@ -392,22 +462,62 @@ def _mask_ids(cfg: ModelConfig, b: int, mask_ids, device):
     return mask_ids
 
 
+def _embed_in(cfg: ModelConfig, params: Params, batch: Params
+              ) -> torch.Tensor:
+    if "embeds" in batch:
+        return batch["embeds"].to(cfg.dtype)
+    return layers.embed_tokens(params["embed"], batch["tokens"])
+
+
+def _positions(cfg: ModelConfig, batch: Params, seq: int, device
+               ) -> torch.Tensor:
+    """The batch's ``positions``, or 0..seq-1 (on each M-RoPE stream)."""
+    if "positions" in batch:
+        return torch.as_tensor(batch["positions"], device=device)
+    pos = torch.arange(seq, dtype=torch.int32, device=device)
+    return pos.expand(3, seq) if cfg.m_rope_sections else pos
+
+
+@torch.no_grad()
+def forward(cfg: ModelConfig, params: Params, batch: Params,
+            mask_ids: torch.Tensor | None = None,
+            device: torch.device | str | None = None):
+    """The whole sequence at once, no caches, on ``device`` (None -> the
+    card), where ``params`` must live: batch {tokens [B,S] | embeds
+    [B,S,D], positions (optional; [S], [B,S], or M-RoPE's [3,S] /
+    [3,B,S])} -> (logits [B,S,V], MoE aux loss fp32). A Bayesian config
+    without ``mask_ids`` takes the Masksembles batch-group assignment.
+    Inference only: the loss and its gradients come with training."""
+    dev = device_lib.resolve(device)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    x = _embed_in(cfg, params, batch)
+    b, s = x.shape[:2]
+    mask_ids = _mask_ids(cfg, b, None if mask_ids is None
+                         else torch.as_tensor(mask_ids, device=dev), dev)
+    rope = _rope(cfg, _positions(cfg, batch, s, x.device))
+    x, _, aux = _run_stack(cfg, params, x, mode="forward", rope=rope,
+                           mask_ids=mask_ids)
+    x = layers.norm_apply(params["final_norm"], x, cfg.norm)
+    return layers.lm_head(params["embed"], x), aux
+
+
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Params, batch: Params,
             max_seq: int | None = None,
             mask_ids: torch.Tensor | None = None,
             last_index: int | None = None):
-    """Consume the prompt: batch {tokens [B,S]} -> (logits [B,V] at the last
-    position, or at ``last_index`` — the bucketed form — and caches sized
-    ``max_seq`` (default: the prompt length))."""
-    tokens = batch["tokens"]
-    x = layers.embed_tokens(params["embed"], tokens)
+    """Consume the prompt: batch {tokens [B,S] | embeds [B,S,D] (cast to
+    ``cfg.dtype``), positions (optional, as for :func:`forward`)} ->
+    (logits [B,V] at the last position, or at ``last_index`` — the
+    bucketed form — and caches sized ``max_seq`` (default: the prompt
+    length))."""
+    x = _embed_in(cfg, params, batch)
     b, s = x.shape[:2]
     mask_ids = _mask_ids(cfg, b, mask_ids, x.device)
     caches = init_cache(cfg, b, max_seq or s, device=x.device)
-    rope = _rope(cfg, torch.arange(s, dtype=torch.int32, device=x.device))
-    x, new_caches = _run_stack(cfg, params, x, mode="prefill", rope=rope,
-                               mask_ids=mask_ids, caches=caches)
+    rope = _rope(cfg, _positions(cfg, batch, s, x.device))
+    x, new_caches, _ = _run_stack(cfg, params, x, mode="prefill", rope=rope,
+                                  mask_ids=mask_ids, caches=caches)
     i = s - 1 if last_index is None else int(last_index)
     x = layers.norm_apply(params["final_norm"], x[:, i:i + 1], cfg.norm)
     return layers.lm_head(params["embed"], x)[:, 0], new_caches
@@ -418,13 +528,20 @@ def decode_step(cfg: ModelConfig, params: Params, caches,
                 tokens: torch.Tensor, pos, mask_ids=None):
     """One serving step: tokens [B,1] + caches @ pos -> (logits [B,V], new
     caches). ``pos`` is a scalar shared by the batch or a per-row [B]
-    vector (every cache row at its own position)."""
+    vector (every cache row at its own position); it is both the rotary
+    position (every M-RoPE stream) and the cache slot, as in the
+    reference."""
     x = layers.embed_tokens(params["embed"], tokens)
     b = x.shape[0]
     mask_ids = _mask_ids(cfg, b, mask_ids, x.device)
     p = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
-    rope = _rope(cfg, p[None] if p.ndim == 0 else p[:, None])
-    x, new_caches = _run_stack(cfg, params, x, mode="decode", rope=rope,
-                               mask_ids=mask_ids, caches=caches, pos=p)
+    if p.ndim == 0:
+        pos_arr = p.expand(3, 1) if cfg.m_rope_sections else p[None]
+    else:
+        pos_arr = (p[None, :, None].expand(3, b, 1) if cfg.m_rope_sections
+                   else p[:, None])
+    x, new_caches, _ = _run_stack(cfg, params, x, mode="decode",
+                                  rope=_rope(cfg, pos_arr),
+                                  mask_ids=mask_ids, caches=caches, pos=p)
     x = layers.norm_apply(params["final_norm"], x, cfg.norm)
     return layers.lm_head(params["embed"], x)[:, 0], new_caches

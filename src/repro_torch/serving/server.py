@@ -162,7 +162,6 @@ def step_fns(model, expand_masks: bool = True, fused: bool | None = None,
 def _step_fns(cfg, expand_masks: bool, fused: bool | None,
               buckets: tuple[int, ...] | None,
               device: torch.device) -> StepFns:
-    transformer.check_supported(cfg)
     plan_lib.build_counts[("step_fns", cfg, expand_masks, fused, buckets,
                            device)] += 1
     bayes = cfg.bayesian and expand_masks

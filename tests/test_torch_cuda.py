@@ -844,6 +844,99 @@ def _to(tree, device):
     return tree.to(device)
 
 
+@pytest.mark.parametrize("dims,causal", (
+    ((16, 16, 16, 500, 80), False),     # hubert: 4 clips x 4 masks, dh 80
+    ((32, 32, 8, 128, 128), True),      # phi3.5-moe: 8 prompts x 4 masks
+    ((32, 56, 8, 128, 128), True),      # arctic: a GQA group of 7
+    ((32, 64, 8, 128, 128), True)),     # qwen2-vl
+    ids=("hubert", "phi3.5", "arctic", "qwen2-vl"))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_flash_attention_backbone_shapes(cuda, dtype, dims, causal):
+    """The kernel at the backbones' attention shapes [b, h, hkv, s, dh]:
+    hubert-xlarge's non-causal forward (dh 80, a ragged width in the
+    kernel's 128 bucket) and the causal prefills at the published head
+    counts over 8 KV heads."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as far
+    q, k, v = _qkv(*dims, getattr(torch, dtype), cuda, seed=dims[1])
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    assert fa.flash_attention.launches == before + 1
+    _flash_close(got, far.flash_attention_ref(q, k, v, causal=causal), v)
+
+
+BACKBONES =("phi3.5-moe-42b-a6.6b", "arctic-480b", "xlstm-350m",
+             "qwen2-vl-72b", "hubert-xlarge")
+
+
+@pytest.mark.parametrize("arch", BACKBONES)
+def test_backbone_on_card_matches_cpu(cuda, arch):
+    """Each family of the later slices at smoke size on the card against
+    the CPU's plain path from the same weights: a prefill (qwen2-vl and
+    hubert over embeddings, qwen2-vl with [3, B, S] M-RoPE positions) and
+    two decode steps, or hubert's forward. Every attention layer's prefill
+    or forward is one flash_attention launch (non-causal for hubert); no
+    fused_decode launch. fp32, within TOL_FWD."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    cfg = _SMOKE(arch)
+    params = transformer.init(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    on_card = _to(params, cuda)
+    gen = torch.Generator().manual_seed(1)
+    b, s = 4, 9
+    if cfg.embeds_input:
+        batch = {"embeds": torch.randn((b, s, cfg.d_model), generator=gen)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen)}
+    if cfg.m_rope_sections:
+        batch["positions"] = (torch.arange(s)[None, None]
+                              + torch.arange(b)[None, :, None]
+                              + torch.tensor([0, 1, 2])[:, None, None])
+    attn_layers = sum(seg.reps * sum(k in ("attn", "moe") for k in
+                                     seg.pattern) for seg in cfg.segments())
+    counters = (fa.flash_attention, dops.fused_decode)
+    card_batch = {k: t.to(cuda) for k, t in batch.items()}
+    if not cfg.has_decode:
+        want, _ = transformer.forward(cfg, params, batch, device="cpu")
+        before = [c.launches for c in counters]
+        got, _ = transformer.forward(cfg, on_card, card_batch, device=cuda)
+        assert [c.launches - n for c, n in zip(counters, before)] == \
+            [attn_layers, 0]
+        torch.testing.assert_close(got.cpu(), want, rtol=TOL_FWD,
+                                   atol=TOL_FWD)
+        return
+    want, wc = transformer.prefill(cfg, params, batch, max_seq=s + 2)
+    wants, toks = [want], []
+    for i in range(2):
+        toks.append(wants[-1].argmax(-1)[:, None])
+        want, wc = transformer.decode_step(cfg, params, wc, toks[-1], s + i)
+        wants.append(want)
+    before = [c.launches for c in counters]
+    got, gc = transformer.prefill(cfg, on_card, card_batch, max_seq=s + 2)
+    assert [c.launches - n for c, n in zip(counters, before)] == \
+        [attn_layers, 0]
+    torch.testing.assert_close(got.cpu(), wants[0], rtol=TOL_FWD,
+                               atol=TOL_FWD)
+    for i, tok in enumerate(toks):
+        got, gc = transformer.decode_step(cfg, on_card, gc, tok.to(cuda),
+                                          s + i)
+        torch.testing.assert_close(got.cpu(), wants[i + 1], rtol=TOL_FWD,
+                                   atol=TOL_FWD)
+    assert [c.launches - n for c, n in zip(counters, before)] == \
+        [attn_layers, 0]
+    for g, w in zip(_leaves_of(gc), _leaves_of(wc)):
+        torch.testing.assert_close(g.cpu(), w, rtol=TOL_FWD, atol=TOL_FWD)
+
+
+def _leaves_of(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves_of(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves_of(v)]
+    return [tree]
+
+
 # ---------------------------------------------------------------------------
 # moments and the design flow
 # ---------------------------------------------------------------------------

@@ -378,6 +378,15 @@ def test_generate_matches_jax(hybrid):
 @pytest.mark.parametrize("arch", ("xlstm-350m", "arctic-480b",
                                   "qwen2-vl-72b", "hubert-xlarge"))
 def test_unported_families_still_raise(arch):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        t_model.build_model(t_registry.smoke_config(arch))
-    t_model.build_model(t_registry.smoke_config(ARCH))
+    """Nothing is left unported: each family builds beside the hybrid with
+    the reference's parameter layout, and a hybrid stack holding its block
+    kinds (or, for the attention-only families, its config's attention
+    form) builds the reference's tree too."""
+    from test_torch_lm import assert_reference_layout
+    tcfg, _ = assert_reference_layout(arch)
+    assert_reference_layout(ARCH)
+    kinds = {k for seg in tcfg.segments() for k in seg.pattern}
+    if kinds - {"attn"}:
+        assert_reference_layout(ARCH, segments_override=(
+            (("rec", "rec", "local_attn"), 1), (tuple(sorted(kinds)), 1)),
+            **({"n_experts": 8, "top_k": 2} if "moe" in kinds else {}))

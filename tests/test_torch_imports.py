@@ -16,6 +16,7 @@ from repro_torch.ivim import evaluate as ivim_eval
 from repro_torch.ivim import model as ivim_model
 from repro_torch.ivim import train as ivim_train
 from repro_torch.models import model as lm_model
+from repro_torch.models import transformer
 from repro_torch.serving import engine, router, server
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -32,7 +33,8 @@ def test_port_imports_no_jax_and_no_reference():
         "k.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
         "assert 'repro_torch.distributed.compression' in names, names\n"
-        "for n in ('models.rglru', 'kernels.rglru_scan.ops',\n"
+        "for n in ('models.rglru', 'models.moe', 'models.xlstm',\n"
+        "          'kernels.rglru_scan.ops',\n"
         "          'kernels.flash_attention.ops', 'kernels.moments.ops',\n"
         "          'kernels.moments.ref', 'core.transform',\n"
         "          'core.latency_model', 'ivim.train', 'ivim.evaluate',\n"
@@ -73,6 +75,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: router.ServingRouter(lm, {}),
         lambda: plan_lib.compile_decode_step(cfg),
         lambda: lm.init(torch.Generator().manual_seed(0)),
+        lambda: lm.forward({}, {"tokens": toks}),
+        lambda: transformer.forward(registry.smoke_config("hubert-xlarge"),
+                                    {}, {"embeds": torch.zeros((1, 3, 64))}),
         lambda: engine.predict_volume(plan, x[None]),
         lambda: engine.predict_packed(plan, x),
         lambda: engine.plan_chunk_runner(plan),

@@ -240,21 +240,57 @@ def test_cache_trim_positions_matches_jax(qwen):
                 j_transformer.cache_trim_positions(jc, 3))
 
 
+def _shapes(tree):
+    """``(shape, dtype name)`` leaves of a reference or port tree."""
+    return jax.tree.map(
+        lambda a: (tuple(a.shape), str(a.dtype).replace("torch.", "")),
+        tree, is_leaf=lambda x: isinstance(x, torch.Tensor))
+
+
+def assert_reference_layout(arch, **overrides):
+    """The port builds ``smoke_config(arch)`` and its ``init`` holds the
+    reference's tree: the same paths, shapes and dtypes (and its masks)."""
+    jcfg = j_registry.smoke_config(arch, **overrides)
+    tcfg = t_registry.smoke_config(arch, **overrides)
+    model = t_model.build_model(tcfg)
+    tp = model.init(torch.Generator().manual_seed(0), device="cpu")
+    jp = jax.eval_shape(lambda: j_build_model(jcfg).init(
+        jax.random.PRNGKey(0)))
+    is_pair = lambda x: isinstance(x, tuple)      # noqa: E731
+    j_shapes, t_shapes = _shapes(jp), _shapes(tp)
+    assert jax.tree.structure(j_shapes, is_leaf=is_pair) == \
+        jax.tree.structure(t_shapes, is_leaf=is_pair)
+    assert jax.tree.leaves(j_shapes, is_leaf=is_pair) == \
+        jax.tree.leaves(t_shapes, is_leaf=is_pair)
+    j_masks = [np.asarray(m) for path, m in jax.tree_util.tree_leaves_with_path(
+        j_build_model(jcfg).init(jax.random.PRNGKey(0)))
+        if "masks" in jax.tree_util.keystr(path)]
+    t_masks = [m for path, m in jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(lambda t: t.numpy(), tp,
+                     is_leaf=lambda x: isinstance(x, torch.Tensor)))
+        if "masks" in jax.tree_util.keystr(path)]
+    assert len(t_masks) == len(j_masks) > 0
+    for got, want in zip(t_masks, j_masks):
+        _close(got, want, 0)
+    return tcfg, model
+
+
 @pytest.mark.parametrize("arch", ("phi3.5-moe-42b-a6.6b",
                                   "recurrentgemma-2b", "xlstm-350m",
                                   "hubert-xlarge", "qwen2-vl-72b"))
 def test_later_slice_families_raise(arch):
-    cfg = t_registry.smoke_config(arch)
+    """The families of the later slices build, with the reference's
+    parameter layout; only a block kind no family has raises
+    (``ValueError``, as in the reference), here in a hybrid stack."""
+    assert_reference_layout(arch)
     if arch == "recurrentgemma-2b":
-        # the hybrid family is built since slice 4 brought the rec block;
-        # a hybrid holding a block kind still to port raises as the rest do
-        t_model.build_model(cfg)
-        cfg = dataclasses.replace(cfg, segments_override=(
-            (("rec", "rec", "local_attn"), 1), (("mlstm",), 1)))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        t_model.build_model(cfg)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        t_transformer.init(cfg, torch.Generator(), device="cpu")
+        cfg = dataclasses.replace(t_registry.smoke_config(arch),
+                                  segments_override=(
+            (("rec", "rec", "local_attn"), 1), (("conv",), 1)))
+        with pytest.raises(ValueError, match="unknown block kind conv"):
+            t_transformer.init(cfg, torch.Generator(), device="cpu")
+        with pytest.raises(ValueError, match="conv"):
+            t_transformer.init_cache(cfg, 1, 4, device="cpu")
 
 
 def test_config_is_hashable_and_matches_reference():
