@@ -56,6 +56,12 @@ and read just after:
   embeddings with an 8x8 image grid's M-RoPE positions; hubert-xlarge (all
   48) through ``forward`` over 4 clips x 4 masks of 500 frames, with a
   posterior per frame.
+* LM training: ``qwen2-1.5b`` at its published widths and full depth
+  (bf16, 4 masks, remat "full") through ``train.make_train_step`` on
+  ``data.lm_batch`` batches of 4 x 2,048 tokens (AdamW, grad_accum 2 with
+  int8 error feedback, Adafactor), a ``Trainer`` cut and resumed from its
+  checkpoints, and ``recurrentgemma-2b`` at 3 layers, whose RG-LRU scan
+  trains through the ``rglru_scan`` kernels (forward and backward).
 
 Phases, each on its own line; any failure raises and exits nonzero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -181,10 +187,22 @@ Phases, each on its own line; any failure raises and exits nonzero:
      finite outputs; and ``[backbone_agreement]``: fp32 at full width and
      cut depth, prefill(s+1) against prefill(s) + one decode step within
      TOL_HY_PATH (phi3.5 at the dropless capacity, xlstm, qwen2-vl);
- 13. one JSON line with every kernel's numbers (the server's and the
+ 13-17. training (``train_phases``): ``[train]`` the three qwen2-1.5b
+     legs with ms a step, tokens/s, peak memory, first and last loss and
+     the model-FLOPs share, no kernel launched and the AdamW loss falling
+     (``[train_profile]``: one step's forward + backward and optimizer
+     ms, and its profile); ``[train_resume]`` 2 layers cut at step 6 and
+     resumed to 9 against an uninterrupted run; ``[train_agreement]`` one
+     fp32 step on the card against the CPU; ``[train_hybrid]``
+     recurrentgemma-2b with 6 ``rglru_scan`` launches a step asserted (2
+     forward, 2 remat recompute, 2 backward); ``[train_kernel]`` the
+     scan's backward kernel against autograd through the plain version;
+ 18. one JSON line with every kernel's numbers (the server's and the
      router's launches as ``server_launches``, ``router_launches`` and
      ``router_faulted_launches``, the backbone phases' as
-     ``backbone_launches`` by architecture), then the device line.
+     ``backbone_launches`` by architecture, the training runs' as
+     ``train_launches``; the scan's backward as ``backward_*``), then the
+     device line.
 
 Weights are random from ``torch.Generator`` seeds (IVIM: seed 0 with
 non-trivial BN running statistics from seed 1; LM: seed 0); the data is
@@ -196,6 +214,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -342,6 +361,58 @@ ENC_ARCH, ENC_CLIPS, ENC_FRAMES = "hubert-xlarge", 4, 500
 # groups cannot drop a token that the step keeps
 BB_AGREE = (("phi3.5-moe-42b-a6.6b", 2), ("xlstm-350m", 4),
             ("qwen2-vl-72b", 2))
+
+
+# LM training (phases 13-17): qwen2-1.5b at published widths and full
+# depth, bf16, 4 masks, remat "full", B 4 x S 2048 (two query chunks of the
+# chunked attention); AdamW 20 steps at lr 3e-4 (warmup 5, decay 20), a
+# grad_accum 2 + int8 error-feedback leg and an Adafactor leg of 5 steps.
+# The AdamW leg's loss must fall. A second AdamW leg runs at lr 1e-3 and
+# is reported, not checked: there the loss rises again once the warmup
+# ends. At 1e-3 the reference does not fall either over 20 steps of a cut
+# qwen2, and the port matches it step by step
+# (tests/test_torch_train.py::test_twenty_steps_at_lr_1e3_match_jax).
+# The step's ms is the median after step 2.
+TRAIN_ARCH, TRAIN_B, TRAIN_S = "qwen2-1.5b", 4, 2048
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=5, decay_steps=20)
+TRAIN_LEGS = (("adamw", "adamw", 20, 1, False, 3e-4),  # leg, optimizer,
+              ("adamw_lr1e-3", "adamw", 20, 1, False, 1e-3),   # steps,
+              ("accum_ef", "adamw", 5, 2, True, 3e-4),  # grad_accum,
+              ("adafactor", "adafactor", 5, 1, False, 3e-4))  # compress, lr
+TRAIN_WARM = 2
+# resume: 2 of qwen2-1.5b's 28 layers at published widths — a checkpoint of
+# the whole train state is 10 bytes a parameter (bf16 weights, fp32 AdamW
+# moments), 15.4 GB at 28 layers against 3.3 GB at 2, and the run writes
+# five of them. Losses of the resumed run against an uninterrupted one:
+# cuBLAS products are repeatable, but the embedding's backward accumulates
+# with atomics, so bf16 weights may round apart by a step after a few
+# updates; 1e-3 relative, and whether they are bitwise is printed
+TRAIN_RESUME_LAYERS, TRAIN_RESUME_STEPS, TRAIN_RESUME_EVERY = 2, (6, 9), 3
+TOL_RESUME = 1e-3
+# one fp32 train step on the card against the CPU, 2 layers at published
+# widths, B 4 x S 64, TF32 off: loss 1e-5 and gnorm 1e-4 relative (sums in
+# another order); the gradients (read as AdamW's first moment, 0.1 x the
+# clipped gradient) within 1e-4 of each leaf's largest; the updated
+# parameters within what that implies: AdamW's first step moves a
+# parameter by lr g/(|g| + eps), and gradients d apart move it at most
+# 2 d/(max |g| + eps) lr apart (2 lr where |g| is near d: the key bias's
+# gradient is zero in exact arithmetic, as a query's softmax does not see
+# a common shift, so its step is rounding noise), plus two fp32 ulps of
+# the value (the card may fuse the update's product and sum); the share of
+# that bound used is printed
+TRAIN_AGREE_LAYERS, TRAIN_AGREE_B, TRAIN_AGREE_S = 2, 4, 64
+TOL_TRAIN_AGREE = {"loss": 1e-5, "gnorm": 1e-4, "grad": 1e-4}
+# the hybrid: recurrentgemma-2b, 3 layers (rec, rec, local_attn: one repeat
+# of its pattern), bf16, B 8 x S 1024, 10 AdamW steps; rglru_scan launches a
+# step: 2 recurrent layers x (forward + remat recompute) + 2 backward
+TRAIN_HY_LAYERS, TRAIN_HY_B, TRAIN_HY_S, TRAIN_HY_STEPS = 3, 8, 1024, 10
+TRAIN_HY_SCAN_LAUNCHES, TRAIN_HY_SCAN_BACKWARD = 6, 2
+# the scan's backward kernel against autograd through the plain version:
+# max abs error over the plain gradient's magnitude (a sequential fmaf
+# carry against the odd/even tree; 5e-7 in a CPU emulation of the kernel)
+TRAIN_KERNEL_SHAPES = (("train", (8, 1024, 2560)), ("served", (32, 128, 2560)),
+                       ("long", (4, 4096, 2560)))
+TOL_SCAN_BWD_REL = 1e-5
 
 
 def _phase(phase: str, /, **fields) -> None:
@@ -2557,6 +2628,357 @@ def flow_phases(dev, time_ms, counters) -> dict:
     return {"eval_launches": sweep_launches[3], "train_s": train_s,
             "sweep_s": sweep_s}
 
+def _train_flops(cfg, params, b: int, s: int) -> dict:
+    """Model FLOPs of one step: 6 x parameters x tokens plus attention
+    (the reference's masked full products, 4 B H S^2 dh a layer forward,
+    three times that with the backward), and apart the remat recompute:
+    each repeat's forward again, the chunked attention's chunks a third
+    time. Masks are not parameters here, and neither is the input
+    embedding table where an ``unembed`` head exists (a gather, no
+    product): the head counts once, as ``unembed`` or as the tied
+    table."""
+    from repro_torch.core import tree as tree_lib
+    untied = "unembed" in params["embed"]
+    n_all = sum(t.numel() for p, t in tree_lib.flatten_with_path(params)
+                if "masks" not in p
+                and not (untied and p == ("embed", "embed")))
+    n_seg = sum(t.numel() for p, t in tree_lib.flatten_with_path(
+        params["segments"]) if "masks" not in p)
+    kinds = [k for seg in cfg.segments() for _ in range(seg.reps)
+             for k in seg.pattern]
+    n_attn = sum(k in ("attn", "local_attn", "moe") for k in kinds)
+    attn_fwd = 4 * b * cfg.n_heads * s * s * cfg.resolved_head_dim * n_attn
+    chunked = s > cfg.attn_chunk and s % cfg.attn_chunk == 0
+    tokens = b * s
+    return {"params": n_all, "model": 6 * n_all * tokens + 3 * attn_fwd,
+            "recompute": ((2 * n_seg * tokens + attn_fwd)
+                          if cfg.remat != "none" else 0)
+            + (attn_fwd if chunked else 0)}
+
+
+def train_phases(dev, time_ms, bound, counters) -> dict:
+    """Phases 13-17: LM training on the card. ``[train]``: qwen2-1.5b at
+    published widths and full depth through ``make_train_step`` (AdamW, a
+    grad_accum 2 + int8 EF leg, Adafactor), with ms a step, tokens/s, peak
+    memory, first and last loss and the model-FLOPs share; no flash,
+    moments or fused_decode launch. ``[train_resume]``: a ``Trainer`` cut
+    at step 6 and resumed to 9 against an uninterrupted run.
+    ``[train_agreement]``: one fp32 step on the card against the CPU.
+    ``[train_hybrid]``: recurrentgemma-2b with the scan's launches a step
+    asserted. ``[train_kernel]``: the scan's backward kernel against
+    autograd through the plain version. ``counters`` in ``KERNEL_NAMES``
+    order. Returns the launches of the training runs by kernel and the
+    backward kernel's records."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.distributed import checkpoint as ckpt_lib
+    from repro_torch.kernels.rglru_scan import ops as sc_ops
+    from repro_torch.kernels.rglru_scan import ref as sc_ref
+    from repro_torch.models import model as lm_model
+    from repro_torch.optim import OptimizerConfig, build_optimizer
+    from repro_torch.train import (TrainConfig, Trainer, make_train_step,
+                                   train_state_init)
+
+    t_phases = time.perf_counter()
+    totals = dict.fromkeys(KERNEL_NAMES, 0)
+    backward_total = 0
+
+    def add_counts():
+        nonlocal backward_total
+        for name, n in _launch_counts(counters).items():
+            totals[name] += n
+        backward_total += sc_ops.rglru_scan.backward_launches
+
+    def reset():
+        _reset_counts(counters)
+        sc_ops.rglru_scan.backward_launches = 0
+
+    def leg(cfg, name, steps, accum, compress, b, s, lr=TRAIN_OPT["lr"],
+            check=None, profile=False):
+        """``steps`` train steps from a fresh seed-0 state: losses, step
+        times, peak memory, launches (``check(step, counts)`` after each
+        step); with ``profile``, then one step's parts (forward + backward,
+        the optimizer's update, on CUDA events) and one step under the
+        profiler."""
+        model = lm_model.build_model(cfg)
+        opt = build_optimizer(OptimizerConfig(name=name,
+                                              **{**TRAIN_OPT, "lr": lr}))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = train_state_init(model, opt,
+                                 torch.Generator(dev).manual_seed(0),
+                                 compress, device=dev)
+        step_fn = make_train_step(model, opt, TrainConfig(
+            grad_accum=accum, compress_grads=compress))
+        data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                            global_batch=b)
+        flops = _train_flops(cfg, state["params"], b, s)
+        losses, secs, gnorms = [], [], []
+        for step in range(steps):
+            batch = lm_batch(data, step, dev)
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            add_counts()
+            if check:
+                check(step, _launch_counts(counters))
+            losses.append(loss)
+            gnorms.append(float(metrics["gnorm"]))
+            if not math.isfinite(loss):
+                raise AssertionError(f"{cfg.arch_id} {name} step {step}: "
+                                     f"loss {loss}")
+        step_s = statistics.median(secs[TRAIN_WARM:] or secs)
+        rec = {"steps": steps, "grad_accum": accum, "compress": compress,
+               "ms_per_step": 1e3 * step_s,
+               "tokens_per_s": b * s / step_s,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "loss_first": losses[0], "loss_last": losses[-1],
+               "gnorm_first": gnorms[0], "gnorm_last": gnorms[-1],
+               "params": flops["params"],
+               "model_tflop_per_step": flops["model"] / 1e12,
+               "recompute_tflop_per_step": flops["recompute"] / 1e12,
+               "model_flops_share": flops["model"] / (step_s * BF16_PEAK),
+               "flops_share_with_recompute": (
+                   (flops["model"] + flops["recompute"])
+                   / (step_s * BF16_PEAK)),
+               "first_step_s": secs[0]}
+        if profile:
+            batch = lm_batch(data, steps, dev)
+            params = state["params"]
+            leaves = tree_lib.leaves(params)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            loss, _ = model.loss(params, batch)
+            grads = torch.autograd.grad(loss, leaves)
+            ev[1].record()
+            opt.update(tree_lib.unflatten(params, list(grads)), state["opt"],
+                       params)
+            ev[2].record()
+            ev[2].synchronize()
+            del loss, grads
+            rec["forward_backward_ms"] = ev[0].elapsed_time(ev[1])
+            rec["optimizer_ms"] = ev[1].elapsed_time(ev[2])
+            rec["profile"] = call_profile(
+                lambda: step_fn(state, batch), reps=1)
+        del state
+        torch.cuda.empty_cache()
+        return rec, losses
+
+    # ---- [train]: qwen2-1.5b, all 28 layers -------------------------------
+    cfg = registry.get_config(TRAIN_ARCH, mask_samples=LM_MASKS,
+                              remat="full")
+    if cfg.n_layers != 28 or cfg.dtype != torch.bfloat16:
+        raise AssertionError(f"{TRAIN_ARCH}: {cfg.n_layers} layers, "
+                             f"{cfg.dtype}")
+    train = {}
+    for tag, name, steps, accum, compress, lr in TRAIN_LEGS:
+        before = dict(totals)
+        rec, losses = leg(cfg, name, steps, accum, compress, TRAIN_B,
+                          TRAIN_S, lr=lr, profile=tag == "adamw")
+        prof = rec.pop("profile", None)
+        if prof:
+            _phase("train_profile", arch=TRAIN_ARCH, leg=tag, **{
+                k: rec[k] for k in ("forward_backward_ms", "optimizer_ms")},
+                **prof)
+        counts = {k: totals[k] - before[k] for k in KERNEL_NAMES}
+        _phase("train", arch=TRAIN_ARCH, leg=tag, optimizer=name, lr=lr,
+               layers=cfg.n_layers, dtype=cfg.dtype, batch=TRAIN_B,
+               seq=TRAIN_S, remat=cfg.remat, launches=counts,
+               losses=[round(x, 4) for x in losses], **rec)
+        if any(counts.values()):
+            raise AssertionError(f"[train] {tag}: kernel launches {counts}; "
+                                 f"training takes none of them")
+        if tag == "adamw" and not statistics.mean(losses[-5:]) < losses[0]:
+            raise AssertionError(f"[train] {tag}: the loss did not fall "
+                                 f"({losses})")
+        train[tag] = rec
+
+    # ---- [train_resume]: a Trainer cut and resumed -------------------------
+    rcfg = dataclasses.replace(cfg, n_layers=TRAIN_RESUME_LAYERS)
+    model = lm_model.build_model(rcfg)
+    opt = build_optimizer(OptimizerConfig(name="adamw", **TRAIN_OPT))
+    data = LMDataConfig(vocab_size=rcfg.vocab_size, seq_len=TRAIN_S,
+                        global_batch=TRAIN_B)
+    cut, total = TRAIN_RESUME_STEPS
+    reset()
+    _, whole = Trainer(model, opt, TrainConfig(steps=total), data,
+                       device=dev).run()
+    with tempfile.TemporaryDirectory() as d:
+        kw = dict(checkpoint_dir=d, checkpoint_every=TRAIN_RESUME_EVERY)
+        _, first = Trainer(model, opt, TrainConfig(steps=cut, **kw), data,
+                           device=dev).run()
+        t0 = time.perf_counter()
+        again = Trainer(model, opt, TrainConfig(steps=total, **kw), data,
+                        device=dev)
+        start, state = again.init_or_restore()
+        restore_s = time.perf_counter() - t0
+        if start != cut:
+            raise AssertionError(f"[train_resume] restored step {start}, "
+                                 f"expected {cut}")
+        del state
+        state, rest = again.run()
+        t0 = time.perf_counter()
+        path = ckpt_lib.save_checkpoint(d, 10 ** 6, state)
+        write_s = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in Path(path).rglob("*")
+                         if f.is_file())
+    add_counts()
+    got = [h["loss"] for h in first + rest]
+    want = [h["loss"] for h in whole]
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    if len(got) != total or not rel <= TOL_RESUME:
+        raise AssertionError(f"[train_resume] resumed losses {got} against "
+                             f"{want} (rel {rel:.3g} > {TOL_RESUME})")
+    _phase("train_resume", arch=TRAIN_ARCH, layers=rcfg.n_layers,
+           steps=f"{cut}+{total - cut}", every=TRAIN_RESUME_EVERY,
+           losses_resumed=[round(x, 5) for x in got],
+           losses_whole=[round(x, 5) for x in want], max_rel=rel,
+           bitwise=got == want, checkpoint_gb=ckpt_bytes / 1e9,
+           checkpoint_write_s=f"{write_s:.2f}",
+           restore_s=f"{restore_s:.2f}")
+    del state
+    torch.cuda.empty_cache()
+
+    # ---- [train_agreement]: one fp32 step, card against CPU ---------------
+    acfg = dataclasses.replace(cfg, n_layers=TRAIN_AGREE_LAYERS,
+                               dtype=torch.float32)
+    model = lm_model.build_model(acfg)
+    opt = build_optimizer(OptimizerConfig(name="adamw", **TRAIN_OPT))
+    step_fn = make_train_step(model, opt, TrainConfig())
+    cpu_state = train_state_init(model, opt, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    card_state = tree_lib.tree_map(lambda t: t.to(dev, copy=True), cpu_state)
+    data = LMDataConfig(vocab_size=acfg.vocab_size, seq_len=TRAIN_AGREE_S,
+                        global_batch=TRAIN_AGREE_B)
+    reset()
+    card_state, card_m = step_fn(card_state, lm_batch(data, 0, dev))
+    add_counts()
+    cpu_state, cpu_m = step_fn(cpu_state, lm_batch(data, 0, "cpu"))
+    errs = {k: abs(float(card_m[k]) - float(cpu_m[k])) / abs(float(cpu_m[k]))
+            for k in ("loss", "gnorm")}
+    lr1 = float(opt.cfg.lr * min(1, 1 / max(opt.cfg.warmup_steps, 1)))
+    grad_rel, grad_at, worst, use = 0.0, None, 0.0, 0.0
+    for (path, p_card), p_cpu, mu_card, mu_cpu in zip(
+            tree_lib.flatten_with_path(card_state["params"]),
+            tree_lib.leaves(cpu_state["params"]),
+            tree_lib.leaves(card_state["opt"]["mu"]),
+            tree_lib.leaves(cpu_state["opt"]["mu"])):
+        # mu after one step is 0.1 x the clipped gradient
+        g_card, g_cpu = mu_card.cpu() / 0.1, mu_cpu / 0.1
+        scale = float(g_cpu.abs().max())
+        if scale > 0:
+            r = float((g_card - g_cpu).abs().max()) / scale
+            if r > grad_rel:
+                grad_rel, grad_at = r, path
+        p_card, p_cpu = p_card.detach().cpu(), p_cpu.detach()
+        diff = (p_card - p_cpu).abs()
+        room = (lr1 * torch.clamp(
+            2 * TOL_TRAIN_AGREE["grad"] * scale
+            / (torch.maximum(g_card.abs(), g_cpu.abs()) + opt.cfg.eps),
+            max=2.0)
+            + 2.0 ** -22 * torch.maximum(p_card.abs(), p_cpu.abs()))
+        worst = max(worst, float(diff.max()))
+        use = max(use, float((diff / room).max()))
+    if (errs["loss"] > TOL_TRAIN_AGREE["loss"]
+            or errs["gnorm"] > TOL_TRAIN_AGREE["gnorm"]
+            or grad_rel > TOL_TRAIN_AGREE["grad"] or use > 1):
+        raise AssertionError(f"[train_agreement] card vs CPU: {errs}, "
+                             f"gradient {grad_rel:.3g} at {grad_at}, "
+                             f"params {worst:.3g} at {use:.3g} of their "
+                             f"bound (lr {lr1})")
+    _phase("train_agreement", arch=TRAIN_ARCH, layers=acfg.n_layers,
+           dtype=acfg.dtype, batch=TRAIN_AGREE_B, seq=TRAIN_AGREE_S,
+           loss_card=float(card_m["loss"]), loss_cpu=float(cpu_m["loss"]),
+           loss_rel=errs["loss"], gnorm_card=float(card_m["gnorm"]),
+           gnorm_cpu=float(cpu_m["gnorm"]), gnorm_rel=errs["gnorm"],
+           grad_rel=grad_rel, grad_worst_leaf=grad_at,
+           params_max_abs=worst, params_lr_share=worst / lr1,
+           params_bound_use=use)
+    del card_state, cpu_state
+    torch.cuda.empty_cache()
+
+    # ---- [train_hybrid]: recurrentgemma-2b, the scan's backward ------------
+    hcfg = registry.get_config(HY_ARCH, mask_samples=LM_MASKS,
+                               n_layers=TRAIN_HY_LAYERS, remat="full")
+    kinds = [k for seg in hcfg.segments() for _ in range(seg.reps)
+             for k in seg.pattern]
+    if kinds != ["rec", "rec", "local_attn"]:
+        raise AssertionError(f"{HY_ARCH} at {TRAIN_HY_LAYERS} layers: "
+                             f"{kinds}")
+
+    def scan_launches(step, counts):
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        want["rglru_scan"] = TRAIN_HY_SCAN_LAUNCHES
+        back = sc_ops.rglru_scan.backward_launches
+        if counts != want or back != TRAIN_HY_SCAN_BACKWARD:
+            raise AssertionError(f"[train_hybrid] step {step}: launches "
+                                 f"{counts}, backward {back}; expected "
+                                 f"{want}, backward "
+                                 f"{TRAIN_HY_SCAN_BACKWARD}")
+
+    hy, losses = leg(hcfg, "adamw", TRAIN_HY_STEPS, 1, False, TRAIN_HY_B,
+                     TRAIN_HY_S, check=scan_launches)
+    _phase("train_hybrid", arch=HY_ARCH, layers=kinds, dtype=hcfg.dtype,
+           batch=TRAIN_HY_B, seq=TRAIN_HY_S, remat=hcfg.remat,
+           scan_launches_per_step=TRAIN_HY_SCAN_LAUNCHES,
+           scan_backward_per_step=TRAIN_HY_SCAN_BACKWARD,
+           losses=[round(x, 4) for x in losses], **hy)
+
+    # ---- [train_kernel]: the backward kernel against plain autograd -------
+    gen = torch.Generator(dev).manual_seed(5)
+    kernel = {}
+    for name, shape in TRAIN_KERNEL_SHAPES:
+        lam = 0.9 + 0.099 * torch.rand(shape[-1], generator=gen, device=dev)
+        a = lam ** (8 * torch.rand(shape, generator=gen, device=dev))
+        b = torch.randn(shape, generator=gen, device=dev) \
+            * torch.sqrt(1 - a * a)
+        g = torch.randn(shape, generator=gen, device=dev)
+        ka, kb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        pa, pb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        reset()
+        k_da, k_db = torch.autograd.grad(sc_ops.RGLRUScan.apply(ka, kb),
+                                         (ka, kb), g)
+        if sc_ops.rglru_scan.backward_launches != 1:
+            raise AssertionError("[train_kernel] the Function's backward did "
+                                 "not launch the kernel")
+        p_da, p_db = torch.autograd.grad(sc_ref.rglru_scan_ref(pa, pb),
+                                         (pa, pb), g)
+        err = max(float((k - p).abs().max() / p.abs().max())
+                  for k, p in ((k_da, p_da), (k_db, p_db)))
+        if not err <= TOL_SCAN_BWD_REL:
+            raise AssertionError(f"[train_kernel] {name}: backward error "
+                                 f"{err:.3g} of the magnitude")
+        h = sc_ops.rglru_scan(a, b)
+        rec = {"shape": name, "dims": list(shape), "rel_err": err,
+               "max_abs_err": max(float((k - p).abs().max())
+                                  for k, p in ((k_da, p_da), (k_db, p_db))),
+               "ms": time_ms(lambda: sc_ops.rglru_scan_backward(a, h, g)),
+               "plain_ms": time_ms(
+                   lambda: sc_ref.rglru_scan_bwd_ref(a, h, g), 5),
+               "autograd_plain_ms": time_ms(lambda: torch.autograd.grad(
+                   sc_ref.rglru_scan_ref(pa, pb), (pa, pb), g), 3)}
+        # one FMA and a product an element; a, h, g read, da, db written
+        rec["bound_ms"], rec["bound_by"] = bound(3 * a.numel(),
+                                                 5 * 4 * a.numel())
+        _phase("train_kernel", name="rglru_scan_backward", **rec)
+        kernel[name] = rec
+        del a, b, g, h, ka, kb, pa, pb, k_da, k_db, p_da, p_db
+    torch.cuda.empty_cache()
+    _phase("train_summary", seconds=f"{time.perf_counter() - t_phases:.1f}",
+           launches=totals, scan_backward_launches=backward_total)
+    return {"launches": totals, "backward_launches": backward_total,
+            "kernel": kernel, "train": train, "hybrid": hy}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2953,7 +3375,10 @@ def main() -> int:
     # ---- phase 12: the remaining backbones ---------------------------------
     bb = backbone_phases(dev, time_ms, bound, nbytes, lm_counters)
 
-    # ---- phase 13: the kernels line, then the device line -----------------
+    # ---- phases 13-17: LM training -----------------------------------------
+    trained = train_phases(dev, time_ms, bound, lm_counters)
+
+    # ---- phase 18: the kernels line, then the device line -----------------
     main_launches = {"masked_ffn": launches["per_op"][0],
                      "moments": launches["per_op"][3],
                      "fused_plan_samples": samples_launches,
@@ -3018,6 +3443,23 @@ def main() -> int:
                         for k in ("ms", "library_ms", "bound_ms",
                                   "device_ms", "library_device_ms",
                                   "max_abs_err")})
+    for rec in line:           # the training runs' launches beside each
+        rec["train_launches"] = trained["launches"].get(rec["name"], 0)
+        if rec["name"] == "rglru_scan":
+            bwd = trained["kernel"]
+            main_bwd = bwd["train"]
+            rec.update({
+                "train_backward_launches": trained["backward_launches"],
+                "backward_ms": main_bwd["ms"],
+                "backward_plain_ms": main_bwd["plain_ms"],
+                "backward_bound_ms": main_bwd["bound_ms"],
+                "backward_bound_by": main_bwd["bound_by"],
+                "backward_max_abs_err": max(r["max_abs_err"]
+                                            for r in bwd.values()),
+                "backward_rel_err": max(r["rel_err"] for r in bwd.values()),
+                "backward_shapes": {n: {k: r[k] for k in (
+                    "dims", "ms", "plain_ms", "autograd_plain_ms",
+                    "bound_ms", "rel_err")} for n, r in bwd.items()}})
     decode_rec["server_shapes"] = {
         f"active_{a}": {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "rel_err")}

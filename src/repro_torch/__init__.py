@@ -20,10 +20,18 @@ Ported so far:
   stacks is the ``fused_decode`` kernel (one cooperative launch per step)
   with the per-op ``models.transformer.decode_step`` for the rest; the
   continuous-batching server and the multi-host router over it.
+* LM training: ``data`` (seeded stateless batches), ``models.model.Model
+  .loss`` over ``transformer.forward_train`` (the reference's training
+  graph, remat by ``torch.utils.checkpoint``; the RG-LRU scan forward and
+  backward through its kernel and ``RGLRUScan``), ``optim`` (AdamW,
+  Adafactor), ``train`` (``make_train_step``, ``Trainer``) and
+  ``distributed.checkpoint`` / ``compression`` (checkpoints the reference
+  reads, int8 error feedback).
 
 Dispatch is by tensor device: a kernel wrapper given a CPU tensor runs the
 plain PyTorch version beside it (``ref.py``); given a CUDA tensor it launches
-the CUDA kernel or raises. Entry points take ``device=None``, which resolves
+the CUDA kernel or raises. On either device a wrapper refuses an operand
+that requires grad while autograd records (its output would be detached). Entry points take ``device=None``, which resolves
 to CUDA and raises when no card is present (:mod:`repro_torch.device`).
 
 This package imports ``torch`` and numpy only — never ``jax`` and nothing

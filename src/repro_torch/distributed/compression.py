@@ -1,7 +1,13 @@
-"""Symmetric per-row int8 quantization — the part of
-``repro.distributed.compression`` that int8 serving calls
-(``core.plan._quantize_weight``). The gradient-compression transforms and
-the compressed all-reduce come with the port's distributed slice.
+"""Int8 compression (the port's twin of ``repro.distributed.compression``):
+the symmetric per-row quantizer that int8 serving calls
+(``core.plan._quantize_weight``), and the error-feedback gradient
+transforms of the train step (``compress_tree``/``decompress_tree``,
+``ef_init``/``ef_update``): the gradient plus the carried residual is
+quantized per row, dequantized, and the quantization error carried into
+the next step, so the applied updates stay unbiased over steps. Leaves of
+fewer than two dims pass through raw (negligible bytes; quantizing them
+hurts); the 2-D Masksembles ``masks`` are quantized like any matrix. The
+compressed all-reduce comes with the port's distributed slice.
 
 The arithmetic is the reference's, step for step, so the int8 values are
 bit-equal on the same fp32 input, on the CPU and on the card: the scale is
@@ -12,9 +18,16 @@ rounds half to even, as ``jnp.round`` does.
 
 from __future__ import annotations
 
+from typing import Any
+
 import torch
 
-__all__ = ["int8_scale", "quantize_int8", "dequantize_int8"]
+from repro_torch.core import tree as tree_lib
+
+Params = Any
+
+__all__ = ["int8_scale", "quantize_int8", "dequantize_int8",
+           "compress_tree", "decompress_tree", "ef_init", "ef_update"]
 
 
 def int8_scale(amax: torch.Tensor) -> torch.Tensor:
@@ -37,3 +50,54 @@ def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
+
+
+def _compress(g: torch.Tensor) -> dict:
+    if g.ndim < 2:
+        return {"raw": g}
+    q, s = quantize_int8(g)
+    return {"q": q, "scale": s}
+
+
+def _decompress(leaf: dict) -> torch.Tensor:
+    if "raw" in leaf:
+        return leaf["raw"]
+    return dequantize_int8(leaf["q"], leaf["scale"])
+
+
+def compress_tree(grads: Params) -> Params:
+    """Gradient tree -> a tree of ``{"q", "scale"}`` (int8 rows and their
+    fp32 scales), or ``{"raw"}`` for leaves of fewer than two dims."""
+    return tree_lib.tree_map(_compress, grads)
+
+
+def decompress_tree(comp: Params) -> Params:
+    """The inverse of :func:`compress_tree` (fp32 for quantized leaves)."""
+    if isinstance(comp, dict) and ("raw" in comp or "q" in comp):
+        return _decompress(comp)
+    if isinstance(comp, dict):
+        return {k: decompress_tree(v) for k, v in comp.items()}
+    return type(comp)(decompress_tree(v) for v in comp)
+
+
+def ef_init(grads_like: Params) -> Params:
+    """A zero fp32 residual shaped like ``grads_like``."""
+    return tree_lib.tree_map(
+        lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device),
+        grads_like)
+
+
+@torch.no_grad()
+def ef_update(grads: Params, residual: Params) -> tuple[Params, Params]:
+    """Error feedback: corrected = grads + residual (fp32); returns
+    (dequantize(quantize(corrected)), corrected - that). Leaf by leaf, so
+    one leaf's fp32 temporaries are alive at a time; the trees passed in
+    are left as they were."""
+    deq, res = [], []
+    for g, r in zip(tree_lib.leaves(grads), tree_lib.leaves(residual)):
+        corrected = g.float() + r
+        d = _decompress(_compress(corrected))
+        deq.append(d)
+        res.append(corrected - d)
+    return (tree_lib.unflatten(grads, deq),
+            tree_lib.unflatten(residual, res))

@@ -29,8 +29,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "build", "load", "bind", "check_operands",
-           "on_device", "stream_of", "check_launch"]
+__all__ = ["NVCC_FLAGS", "build", "load", "bind", "check_no_grad",
+           "check_operands", "on_device", "stream_of", "check_launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
@@ -110,6 +110,25 @@ def bind(name: str, entry: str, argtypes: list, restype=ctypes.c_int):
         fn.argtypes, fn.restype = argtypes, restype
         _BOUND[(name, entry)] = fn
     return fn
+
+
+def check_no_grad(kernel: str, **operands: torch.Tensor | None) -> None:
+    """Raise ``RuntimeError`` when autograd is recording and an operand
+    requires grad. A kernel fills its output through ``ctypes``, which
+    autograd cannot see: the output would come back detached and the
+    gradient would stop there without a word. Every wrapper calls this on
+    every device, so a CPU run catches what the card would drop; a kernel
+    with a backward is reached through its ``torch.autograd.Function``
+    (``rglru_scan.ops.RGLRUScan``), which hands the wrapper detached
+    tensors."""
+    if not torch.is_grad_enabled():
+        return
+    for name, t in operands.items():
+        if t is not None and t.requires_grad:
+            raise RuntimeError(
+                f"{kernel}: {name} requires grad, and the kernel's output "
+                f"would be detached from autograd; call it under "
+                f"torch.no_grad() or through an autograd.Function")
 
 
 def check_operands(kernel: str, dtypes: dict[str, torch.dtype] | None = None,

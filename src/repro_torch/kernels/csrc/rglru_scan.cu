@@ -27,6 +27,17 @@
 // served shape but 10,240 at one long request's [4, 4096, 2560] — a few
 // warps an SM. A chunked two-pass scan (carries of chunks, then a fix-up)
 // would fill the card; that is later work.
+//
+// Backward (training; the reference differentiates its associative scan
+// with XLA's autodiff and has no kernel for it): given h and the gradient
+// g = dL/dh, the same recurrence runs in reverse time over one channel,
+//
+//     dh[t] = g[t] + a[t+1] * dh[t+1],   dh[S] = 0
+//     db[t] = dh[t],   da[t] = dh[t] * h[t-1],   h[-1] = 0
+//
+// in one pass that reads a, g and h once and writes da and db once (20
+// bytes an element): a[t+1] is carried from the step before, so neither
+// the shift nor the time flip needs a copy.
 
 #include <cuda_runtime.h>
 
@@ -66,16 +77,74 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+rglru_scan_bwd_kernel(const float* __restrict__ a, const float* __restrict__ h,
+                      const float* __restrict__ g, float* __restrict__ da,
+                      float* __restrict__ db, int B, int S, int W) {
+  const long long ch = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (ch >= (long long)B * W) return;
+  const int bi = (int)(ch / W), w = (int)(ch % W);
+  const size_t base = (size_t)bi * S * W + w;
+  const float* ap = a + base;
+  const float* hp = h + base;
+  const float* gp = g + base;
+  float* dap = da + base;
+  float* dbp = db + base;
+  float carry = 0.f;     // dh[t+1]
+  float a_next = 0.f;    // a[t+1]
+  int t = S - 1;
+  // steps t, t-1, ..., t-kUnroll+1; h[t-i-1] is 0 before the first step
+  for (; t + 1 >= kUnroll; t -= kUnroll) {
+    float av[kUnroll], gv[kUnroll], hv[kUnroll];
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      av[i] = ap[(size_t)(t - i) * W];
+      gv[i] = gp[(size_t)(t - i) * W];
+      hv[i] = t - i >= 1 ? hp[(size_t)(t - i - 1) * W] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      carry = fmaf(a_next, carry, gv[i]);
+      dbp[(size_t)(t - i) * W] = carry;
+      dap[(size_t)(t - i) * W] = carry * hv[i];
+      a_next = av[i];
+    }
+  }
+  for (; t >= 0; --t) {
+    carry = fmaf(a_next, carry, gp[(size_t)t * W]);
+    dbp[(size_t)t * W] = carry;
+    dap[(size_t)t * W] = t >= 1 ? carry * hp[(size_t)(t - 1) * W] : 0.f;
+    a_next = ap[(size_t)t * W];
+  }
+}
+
+unsigned blocks_for(int B, int W) {
+  const long long channels = (long long)B * W;
+  const long long blocks = (channels + kThreads - 1) / kThreads;
+  return blocks > 0x7fffffffLL ? 0u : (unsigned)blocks;
+}
+
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int rglru_scan_launch(const float* a, const float* b, float* h, int B, int S, int W,
                                  void* stream) {
   if (B < 1 || S < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  const long long channels = (long long)B * W;
-  const long long blocks = (channels + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  rglru_scan_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const unsigned blocks = blocks_for(B, W);
+  if (blocks == 0) return (int)cudaErrorInvalidValue;
+  rglru_scan_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       a, b, h, B, S, W);
+  return (int)cudaGetLastError();
+}
+
+// The backward: a, h (the forward's output) and g = dL/dh [B, S, W] fp32 ->
+// da, db [B, S, W] fp32. Launches on `stream`; returns cudaGetLastError().
+extern "C" int rglru_scan_bwd_launch(const float* a, const float* h, const float* g, float* da,
+                                     float* db, int B, int S, int W, void* stream) {
+  if (B < 1 || S < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = blocks_for(B, W);
+  if (blocks == 0) return (int)cudaErrorInvalidValue;
+  rglru_scan_bwd_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, h, g, da, db, B, S, W);
   return (int)cudaGetLastError();
 }

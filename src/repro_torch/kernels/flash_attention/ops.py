@@ -33,6 +33,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``h // (H // Hkv)``. Causal requires ``Sq == Skv``. ``chunk`` is the
     query-chunk length of the plain version (its peak memory); the kernel
     does not read it."""
+    _build.check_no_grad("flash_attention", q=q, k=k, v=v)
     if q.device.type == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal=causal, chunk=chunk)
     if q.dtype not in _ENTRIES:

@@ -170,6 +170,11 @@ def fused_decode(spec: FusedDecodeSpec, x: torch.Tensor,
     ``(mean_logp [b, V] f32, rel_unc [b] f32, k_new, v_new)`` with
     k_new/v_new ``[n_attn, R, hkv, dh]`` in x's dtype.
     """
+    if torch.is_grad_enabled():     # the operand walk only when recording
+        _build.check_no_grad(
+            "fused_decode", x=x, cos=cos, sin=sin,
+            **{f"params[{i}]": t for i, t in enumerate(params)},
+            **{f"caches[{i}]": t for i, t in enumerate(caches)})
     if x.device.type == "cpu":
         return _ref.fused_decode_ref(spec, x, params, caches, pos, cos, sin)
     return _launch(spec, x, params, caches, pos, cos, sin)

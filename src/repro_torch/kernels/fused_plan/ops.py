@@ -248,6 +248,7 @@ def pack(spec: FusedSpec, params: tuple[torch.Tensor, ...]) -> FusedParams:
 
 def fused_samples(fp: FusedParams, x: torch.Tensor) -> torch.Tensor:
     """x [B, d_in] -> per-row samples [n_rows, B, d_out]."""
+    _no_grad("fused_samples", fp, x)
     if x.device.type == "cpu":
         return _ref.fused_plan_ref(fp.spec, x, fp.params)
     spec = fp.spec
@@ -270,6 +271,7 @@ def fused_moments(fp: FusedParams, x: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, d_in] -> (mean, std) [B, groups·d_out] over the ``n_masks``
     rows of each group (ddof=0, group-major columns)."""
+    _no_grad("fused_moments", fp, x)
     if x.device.type == "cpu":
         return _ref.fused_moments_ref(fp.spec, x, fp.params)
     spec = fp.spec
@@ -288,6 +290,15 @@ def fused_moments(fp: FusedParams, x: torch.Tensor
     fused_moments.launches += 1
     fused_moments.int8_launches += int(fp.qflat is not None)
     return mean, std
+
+
+def _no_grad(kernel: str, fp: FusedParams, x: torch.Tensor) -> None:
+    if not torch.is_grad_enabled():
+        return
+    _build.check_no_grad(kernel, x=x, params=fp.flat, qparams=fp.qflat,
+                         scales=fp.sflat,
+                         **{f"params[{i}]": t
+                            for i, t in enumerate(fp.params)})
 
 
 def _check(fp: FusedParams, x: torch.Tensor) -> torch.device:

@@ -45,6 +45,8 @@ def masked_ffn(x: torch.Tensor, w1p: torch.Tensor, b1p: torch.Tensor,
     if (w1s is None) != (w2s is None):
         raise ValueError("masked_ffn: w1s and w2s must be passed together")
     quant = w1s is not None
+    _build.check_no_grad("masked_ffn", x=x, w1p=w1p, b1p=b1p, w2p=w2p,
+                         b2=b2, w1s=w1s, w2s=w2s)
     if x.device.type == "cpu":
         return _ref.masked_ffn_ref(x, w1p, b1p, w2p, b2, w1s, w2s,
                                    sample_major=sample_major)

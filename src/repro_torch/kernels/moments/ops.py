@@ -42,6 +42,7 @@ def moments(samples: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if samples.ndim != 3:
         raise ValueError(f"moments: samples {tuple(samples.shape)} are not "
                          f"[N, B, P]")
+    _build.check_no_grad("moments", samples=samples)
     if samples.device.type == "cpu":
         return _ref.moments_ref(samples)
     if samples.dtype not in _ENTRIES:

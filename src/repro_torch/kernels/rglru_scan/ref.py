@@ -6,13 +6,18 @@ the half-length scan solved recursively, the even positions filled in
 from it) with the combine of ``repro.kernels.rglru_scan.ref``, so that its
 products and sums are taken in the reference's order. The kernel runs the
 recurrence step by step instead; the two agree to fp32 rounding.
+
+The backward (:func:`rglru_scan_bwd_ref`) is the same scan run over
+reversed time: ``dh_t = g_t + a_{t+1} dh_{t+1}`` from ``dh_S = 0``, then
+``db = dh`` and ``da_t = dh_t h_{t-1}`` with ``h_{-1} = 0`` — the
+plain version of ``csrc/rglru_scan.cu``'s backward kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["rglru_scan_ref"]
+__all__ = ["rglru_scan_ref", "rglru_scan_bwd_ref"]
 
 
 def _combine(a1, b1, a2, b2):
@@ -43,3 +48,13 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t from h_{-1} = 0: a, b [B, S, W] -> h
     [B, S, W]."""
     return _scan(a, b)[1]
+
+
+def rglru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """a, h (the forward's output) and g = dL/dh [B, S, W] -> (da, db)
+    [B, S, W]."""
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], 1)
+    dh = _scan(a_next.flip(1), g.flip(1))[1].flip(1)
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1)
+    return dh * h_prev, dh

@@ -17,6 +17,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import masks as masks_lib
 from repro_torch.core import plan as plan_lib
@@ -203,16 +204,29 @@ def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _grouped_combine(torch.softmax(s, -1), v)
 
 
+def _chunk_body(fn, *tensors: torch.Tensor):
+    """A chunk of a chunked attention: checkpointed when autograd records
+    (the reference's ``jax.checkpoint`` of the chunk body — otherwise every
+    chunk's fp32 scores stay alive for the backward, O(S^2) again);
+    called directly otherwise."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return ckpt.checkpoint(fn, *tensors, use_reentrant=False)
+    return fn(*tensors)
+
+
 def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, chunk: int = 1024,
                       scores_f32: bool = True) -> torch.Tensor:
-    """Long prefill: a loop over query chunks, each with the exact softmax
-    over the full key axis — peak memory O(chunk x S) instead of O(S^2)."""
+    """Long prefill and training: a loop over query chunks, each with the
+    exact softmax over the full key axis — peak memory O(chunk x S)
+    instead of O(S^2); in training each chunk is recomputed in the
+    backward."""
     sq = q.shape[2]
     if sq % chunk:
         return attention_full(q, k, v, causal=causal, scores_f32=scores_f32)
-    outs = [attention_full(q[:, :, i:i + chunk], k, v, causal=causal,
-                           q_offset=i, scores_f32=scores_f32)
+    outs = [_chunk_body(lambda qi, kk, vv, i=i: attention_full(
+                qi, kk, vv, causal=causal, q_offset=i,
+                scores_f32=scores_f32), q[:, :, i:i + chunk], k, v)
             for i in range(0, sq, chunk)]
     return torch.cat(outs, 2)
 
@@ -232,14 +246,20 @@ def attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dev = q.device
     qpos = torch.arange(w, device=dev)[:, None] + w         # band-local
     kpos = torch.arange(2 * w, device=dev)[None, :]
+
+    def band(qi, kb, vb, start):
+        s = _grouped_scores(qi, kb) / math.sqrt(dh)
+        valid = (kpos <= qpos) & (kpos > qpos - w) & (kpos + start >= w)
+        s = torch.where(valid, s, -1e30)
+        return _grouped_combine(torch.softmax(s, -1), vb)
+
     outs = []
     for i in range(sq // w):
         start = i * w                                       # padded coords
-        kb, vb = kp[:, :, start:start + 2 * w], vp[:, :, start:start + 2 * w]
-        s = _grouped_scores(q[:, :, start:start + w], kb) / math.sqrt(dh)
-        valid = (kpos <= qpos) & (kpos > qpos - w) & (kpos + start >= w)
-        s = torch.where(valid, s, -1e30)
-        outs.append(_grouped_combine(torch.softmax(s, -1), vb))
+        outs.append(_chunk_body(
+            lambda qi, kb, vb, start=start: band(qi, kb, vb, start),
+            q[:, :, start:start + w], kp[:, :, start:start + 2 * w],
+            vp[:, :, start:start + 2 * w]))
     return torch.cat(outs, 2)
 
 

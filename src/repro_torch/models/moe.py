@@ -123,7 +123,12 @@ def moe_apply(p: Params, x: torch.Tensor, cfg,
         mid = mask_ids.to(x.dtype)
         mid = mid[:, None].expand(b, s).reshape(n_groups, group)
         slot_mid = torch.einsum("gtec,gt->gec", dispatch, mid)  # [G,E,C]
-        h = h * p["masks"][slot_mid.long()]                     # [G,E,C,F]
+        # the gather as a one-hot product: the same values (one term a
+        # sum), and a backward that is a matrix product, deterministic,
+        # where an indexed gather's backward accumulates in any order
+        pick = torch.nn.functional.one_hot(
+            slot_mid.long(), p["masks"].shape[0]).to(p["masks"].dtype)
+        h = h * (pick @ p["masks"])                             # [G,E,C,F]
     ye = torch.einsum("gecf,efd->gecd", h, p["wed"])            # [G,E,C,D]
     y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ye)
 

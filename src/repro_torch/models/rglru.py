@@ -10,7 +10,10 @@ RG-LRU (De et al., arXiv:2402.19427):
 The gates are computed in PyTorch (fp32); the prefill's recurrence over
 time is the ``rglru_scan`` kernel (``kernels/rglru_scan``: one pass over
 the gates with the carry in a register, where the reference runs
-``jax.lax.associative_scan``). Decode is the one-step recurrence.
+``jax.lax.associative_scan``), reached through the autograd Function
+``RGLRUScan``, so that training differentiates it with the kernel's
+backward (the same recurrence in reverse time). Decode is the one-step
+recurrence.
 
 Block: ``y = W_out(GeLU(W_gate x) * RG-LRU(conv1d_4(W_in x)))``.
 
@@ -67,11 +70,11 @@ def _gates(p: Params, x: torch.Tensor):
 
 def rglru_scan(p: Params, x: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Prefill: x [B, S, W] -> (y [B, S, W] in x's dtype, final state
-    [B, W] fp32); the recurrence is one ``rglru_scan`` launch on the
-    card."""
+    """Prefill and training: x [B, S, W] -> (y [B, S, W] in x's dtype,
+    final state [B, W] fp32); the recurrence is one ``rglru_scan`` launch
+    on the card, and its gradient one backward launch."""
     a, b = _gates(p, x)                                 # [B, S, W] fp32
-    hh = scan_ops.rglru_scan(a, b)
+    hh = scan_ops.RGLRUScan.apply(a, b)
     return hh.to(x.dtype), hh[:, -1]
 
 

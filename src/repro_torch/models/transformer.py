@@ -14,7 +14,11 @@ with every leaf stacked ``[reps, ...]`` over the segment's repeats, plus
 ``embed`` and ``final_norm``; caches are ``[reps, batch, ...]`` per block
 (k/v/kpos for attention, the fp32 ``h`` and the conv window for ``rec``,
 the fp32 C/n/m and c/n/h/m of the xLSTM blocks). The stack runs as a
-Python loop over layers (serving needs no scan and no rematerialisation).
+Python loop over layers; in training each repeat's body is rematerialised
+as ``cfg.remat`` says (``torch.utils.checkpoint``: "full" recomputes the
+whole body in the backward, "dots" keeps the matrix products' outputs and
+recomputes the rest, "none" keeps everything). Remat moves memory, never
+numbers.
 Positions are one stream, or M-RoPE's three (temporal, height, width:
 qwen2-vl); audio and vision prompts arrive as ``embeds`` from a stubbed
 frontend.
@@ -23,12 +27,17 @@ Prefill attention runs the ``flash_attention`` kernel — causal whenever
 the window does not cut the prompt, and the full (non-causal) attention of
 the encoder-only stack; each ``rec`` block's prefill runs the
 ``rglru_scan`` kernel (``models/rglru.py``). MoE and xLSTM blocks reach no
-kernel of their own (``models/moe.py``, ``models/xlstm.py``).
+kernel of their own (``models/moe.py``, ``models/xlstm.py``). Training
+takes the reference's training graph: its attention branches (banded,
+chunked, full; the flash kernel has no backward) and the ``rglru_scan``
+kernel forward and backward through its autograd Function.
 
 Entry points:
   forward(params, {tokens|embeds})        — logits at every position
                                             (inference; the encoder's only
                                             entry point)
+  forward_train(params, {tokens|embeds})  — the same with gradients (the
+                                            loss's forward)
   prefill(params, {tokens|embeds})        — prompt -> last logits + caches
   decode_step(params, caches, tokens, pos) — one-token serving step
 
@@ -38,10 +47,12 @@ hidden units, assigned per batch row.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import device as device_lib
 from repro_torch.configs.base import ModelConfig
@@ -53,10 +64,10 @@ from repro_torch.models import moe as moe_lib
 
 Params = dict[str, Any]
 
-__all__ = ["init", "params_from_jax", "init_cache", "cache_specs",
-           "cache_scatter_rows", "cache_gather_rows", "cache_reset_rows",
-           "cache_trim_positions", "pack_ffn_params", "forward", "prefill",
-           "decode_step"]
+__all__ = ["init", "params_from_jax", "train_state_from_jax", "init_cache",
+           "cache_specs", "cache_scatter_rows", "cache_gather_rows",
+           "cache_reset_rows", "cache_trim_positions", "pack_ffn_params",
+           "forward", "forward_train", "prefill", "decode_step"]
 
 
 def _stack(trees: list) -> Any:
@@ -130,6 +141,30 @@ def params_from_jax(cfg: ModelConfig, params,
         return t if key in rglru.FP32_PARAMS else t.to(cfg.dtype)
 
     return _tree(conv, params)
+
+
+def train_state_from_jax(cfg: ModelConfig, state,
+                         device: torch.device | str | None = None) -> Params:
+    """The port's train state (``train.trainer.train_state_init``'s tree)
+    holding a reference train state — numpy arrays or anything
+    ``np.asarray`` takes: ``params`` as :func:`params_from_jax` carries
+    them, the optimizer's moments (``mu``/``nu``, or Adafactor's ``v``
+    tree) and the error-feedback residual ``ef`` in fp32, ``step`` int32
+    and ``gnorm`` fp32, on ``device`` (None -> the card)."""
+    dev = device_lib.resolve(device)
+
+    def f32(tree):
+        return _tree(lambda a, _: torch.tensor(np.asarray(a, np.float32),
+                                               device=dev), tree)
+
+    opt = {k: (torch.tensor(np.asarray(v), dtype=torch.int32, device=dev)
+               if k == "step" else f32(v))
+           for k, v in state["opt"].items()}
+    out = {"params": params_from_jax(cfg, state["params"], device=dev),
+           "opt": opt}
+    if "ef" in state:
+        out["ef"] = f32(state["ef"])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -286,7 +321,8 @@ def _rope(cfg: ModelConfig, positions: torch.Tensor):
 def _attention_sublayer(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
                         mode: str, kind: str, cache, pos):
     """Attention sub-layer of attn/local_attn/moe blocks -> (x, new cache;
-    None in ``forward`` mode)."""
+    None in ``forward`` and ``train`` mode). ``train`` takes the
+    reference's training branches, never the flash kernel."""
     h, hkv = cfg.n_heads, cfg.n_kv_heads
     xn = layers.norm_apply(p["norm1"], x, cfg.norm)
     q = layers.split_heads(layers.dense(p["attn"]["wq"], xn), h)
@@ -307,7 +343,8 @@ def _attention_sublayer(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
         s = x.shape[1]
         if window and s > window:
             attn = layers.attention_banded(q, k, v, window=window)
-        elif cfg.attn_scores_f32 and (cfg.causal or not window):
+        elif (mode != "train" and cfg.attn_scores_f32
+              and (cfg.causal or not window)):
             # the flash kernel (plain version on the CPU): a causal prompt
             # (for s <= window the window mask is a no-op: qpos - window <
             # 0 <= kpos), or the encoder's full attention (Sq == Skv)
@@ -360,10 +397,15 @@ def _prefill_kv_cache(cfg: ModelConfig, cache, k: torch.Tensor,
     return new_cache
 
 
+#: Modes that run the whole sequence and build no cache.
+_NO_CACHE = ("forward", "train")
+
+
 def _block_apply(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                  mode: str, rope, mask_ids, cache, pos):
-    """x [B,S,D] (forward/prefill) or [B,1,D] (decode) -> (x, new cache,
-    MoE aux loss or None). ``forward`` mode builds no cache."""
+    """x [B,S,D] (forward/train/prefill) or [B,1,D] (decode) -> (x, new
+    cache, MoE aux loss or None). ``forward`` and ``train`` modes build no
+    cache."""
     if kind in ("mlstm", "slstm"):
         if mode == "decode":
             step = (xlstm.mlstm_block_step if kind == "mlstm"
@@ -374,7 +416,7 @@ def _block_apply(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor, *,
             apply = (xlstm.mlstm_block_apply if kind == "mlstm"
                      else xlstm.slstm_block_apply)
             y, new_cache = apply(p, x, cfg, mask_ids=mask_ids)
-        return x + y, (None if mode == "forward" else new_cache), None
+        return x + y, (None if mode in _NO_CACHE else new_cache), None
     if kind == "rec":
         xn = layers.norm_apply(p["norm1"], x, cfg.norm)
         if mode == "decode":
@@ -384,7 +426,7 @@ def _block_apply(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         else:
             y, new_cache = rglru.rec_block_apply(p["rec"], xn, cfg)
         x = x + y
-        if mode == "forward":
+        if mode in _NO_CACHE:
             new_cache = None
     elif kind in ("attn", "local_attn", "moe"):
         x, new_cache = _attention_sublayer(cfg, p, x, rope, mode, kind,
@@ -399,15 +441,61 @@ def _block_apply(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         new_cache, None
 
 
+@functools.cache
+def _matmul_ops() -> frozenset:
+    aten = torch.ops.aten
+    return frozenset((aten.mm.default, aten.bmm.default, aten.addmm.default,
+                      aten.baddbmm.default))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the matrix products' outputs, recompute the
+    rest (``jax.checkpoint_policies.checkpoint_dots``)."""
+    if op in _matmul_ops():
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat`` (the reference's ``_remat``)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        ctx = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                _save_dots)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx)
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
 def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                mode: str, rope, mask_ids, caches=None, pos=None):
     """Every layer in order; returns (x, caches stacked [reps, ...] — None
-    in ``forward`` mode —, the summed MoE aux loss, fp32)."""
-    new_caches = [] if mode != "forward" else None
+    in ``forward`` and ``train`` mode —, the summed MoE aux loss, fp32).
+    ``train`` runs each repeat's body under ``cfg.remat``."""
+    new_caches = [] if mode not in _NO_CACHE else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, seg in enumerate(cfg.segments()):
         sp = params["segments"][si]
         sc = caches[si] if caches is not None else None
+        if mode == "train":
+            def rep_body(h, total, rp, seg=seg):
+                for i, kind in enumerate(seg.pattern):
+                    h, _, a = _block_apply(kind, cfg, rp[f"b{i}"], h,
+                                           mode=mode, rope=rope,
+                                           mask_ids=mask_ids, cache=None,
+                                           pos=None)
+                    if a is not None:
+                        total = total + a
+                return h, total
+
+            body = _remat(cfg, rep_body)
+            for r in range(seg.reps):
+                x, aux = body(x, aux, plan_lib.tree_map(
+                    lambda a, r=r: a[r], sp))
+            continue
         outs = []
         for r in range(seg.reps):
             rc = {}
@@ -487,7 +575,8 @@ def forward(cfg: ModelConfig, params: Params, batch: Params,
     [B,S,D], positions (optional; [S], [B,S], or M-RoPE's [3,S] /
     [3,B,S])} -> (logits [B,S,V], MoE aux loss fp32). A Bayesian config
     without ``mask_ids`` takes the Masksembles batch-group assignment.
-    Inference only: the loss and its gradients come with training."""
+    Inference only (no gradients; attention through the flash kernel):
+    training's forward is :func:`forward_train`."""
     dev = device_lib.resolve(device)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     x = _embed_in(cfg, params, batch)
@@ -496,6 +585,27 @@ def forward(cfg: ModelConfig, params: Params, batch: Params,
                          else torch.as_tensor(mask_ids, device=dev), dev)
     rope = _rope(cfg, _positions(cfg, batch, s, x.device))
     x, _, aux = _run_stack(cfg, params, x, mode="forward", rope=rope,
+                           mask_ids=mask_ids)
+    x = layers.norm_apply(params["final_norm"], x, cfg.norm)
+    return layers.lm_head(params["embed"], x), aux
+
+
+def forward_train(cfg: ModelConfig, params: Params, batch: Params,
+                  mask_ids: torch.Tensor | None = None):
+    """The training graph (the reference's ``forward``), with gradients, on
+    the device ``params`` live on: batch as for :func:`forward` ->
+    (logits [B,S,V], MoE aux loss fp32). Attention takes the reference's
+    training branches (banded, chunked, full: no flash kernel), every
+    ``rec`` block's recurrence the ``rglru_scan`` kernel and its backward
+    (``RGLRUScan``), and each repeat runs under ``cfg.remat``."""
+    dev = params["embed"]["embed"].device
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    x = _embed_in(cfg, params, batch)
+    b, s = x.shape[:2]
+    mask_ids = _mask_ids(cfg, b, None if mask_ids is None
+                         else torch.as_tensor(mask_ids, device=dev), dev)
+    rope = _rope(cfg, _positions(cfg, batch, s, dev))
+    x, _, aux = _run_stack(cfg, params, x, mode="train", rope=rope,
                            mask_ids=mask_ids)
     x = layers.norm_apply(params["final_norm"], x, cfg.norm)
     return layers.lm_head(params["embed"], x), aux

@@ -1290,3 +1290,138 @@ def test_schedule_orders_on_card(cuda, batch):
                               per_sample, pk, x, n), k_batch):
         assert out.shape == base.shape
         assert float((out - base).abs().max() / base.abs().max()) <= 2e-5
+
+
+# ---------------------------------------------------------------------------
+# training: the scan's backward kernel, a train step, the wrapper guard
+# ---------------------------------------------------------------------------
+
+# the backward kernel against autograd through the plain version: max abs
+# error over the plain gradient's magnitude (a sequential carry against the
+# odd/even tree)
+TOL_SCAN_BWD_REL = 1e-5
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 1024, 2560),      # recurrentgemma-2b's training batch
+    (3, 37, 11),          # ragged B, S and W
+    (2, 1, 5),            # one step
+    (1, 4099, 130)])      # long S past the unrolled loop, ragged tail
+def test_rglru_scan_function_grads_match_plain_autograd(cuda, shape):
+    from repro_torch.kernels.rglru_scan import ops as sops
+    from repro_torch.kernels.rglru_scan import ref as sref
+    a, b = _gates(shape, cuda, seed=sum(shape) + 1)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(9)).to(
+        cuda)
+    ka, kb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    pa, pb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    launches = sops.rglru_scan.launches
+    backward = sops.rglru_scan.backward_launches
+    h = sops.RGLRUScan.apply(ka, kb)
+    got = torch.autograd.grad(h, (ka, kb), g)
+    assert sops.rglru_scan.launches == launches + 2
+    assert sops.rglru_scan.backward_launches == backward + 1
+    want = torch.autograd.grad(sref.rglru_scan_ref(pa, pb), (pa, pb), g,
+                               allow_unused=True)
+    want = (torch.zeros_like(a) if want[0] is None else want[0], want[1])
+    for k, p in zip(got, want):
+        scale = float(p.abs().max()) or 1.0
+        assert float((k - p).abs().max()) <= TOL_SCAN_BWD_REL * scale
+
+
+# one bf16 train step of the smoke qwen2, card against CPU (bf16 products
+# and sums in another order), about twice to ten times what an H100 read
+# (NVIDIA H100 80GB HBM3, 700.00 W): loss 6.8e-6 and gnorm 1.8e-4 relative;
+# each leaf of AdamW's first moment (0.1 x the clipped gradient) 9.0e-3 of
+# the leaf's largest at most (the value bias; two to three bf16 ulps)
+TOL_BF16_STEP = {"loss": 1e-4, "gnorm": 2e-3}
+TOL_BF16_GRAD = 2e-2
+
+
+def test_qwen_bf16_train_step_on_card_matches_cpu(cuda):
+    """One bf16 train step of the smoke qwen2-1.5b (2 layers, 4 masks) from
+    identical parameters on the card and on the CPU. Loss and gnorm within
+    TOL_BF16_STEP, relative; the gradients, read as AdamW's first moment, within
+    TOL_BF16_GRAD of each leaf's largest. The parameters within what that
+    gradient bar implies: AdamW's first step moves a parameter by lr g/(|g|
+    + eps), and two gradients d apart move it by at most 2 d/(max |g| + eps)
+    lr apart, d = TOL_BF16_GRAD x the leaf's largest gradient; plus one
+    bf16 ulp of the value (each side rounds half an ulp), at most 2^-7 of
+    it. No flash launch in training."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.optim import OptimizerConfig, build_optimizer
+    from repro_torch.train import make_train_step, train_state_init
+    from repro_torch.train import TrainConfig as LmTrainConfig
+    cfg = registry.smoke_config("qwen2-1.5b", dtype=torch.bfloat16,
+                                remat="full", attn_chunk=16)
+    model = lm_model.build_model(cfg)
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=0)
+    opt = build_optimizer(ocfg)
+    step = make_train_step(model, opt, LmTrainConfig())
+    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                        global_batch=8)
+    cpu = train_state_init(model, opt, torch.Generator().manual_seed(0),
+                           device="cpu")
+    card = tree_lib.tree_map(lambda t: t.to(cuda, copy=True), cpu)
+    flash = fa_ops.flash_attention.launches
+    card, m_card = step(card, lm_batch(data, 0, cuda))
+    assert fa_ops.flash_attention.launches == flash
+    cpu, m_cpu = step(cpu, lm_batch(data, 0, "cpu"))
+    rel = {k: abs(float(m_card[k]) - float(m_cpu[k])) / abs(float(m_cpu[k]))
+           for k in ("loss", "gnorm")}
+    grad_rel, param_use = {}, 0.0
+    for (path, got), want, mu_c, mu_w in zip(
+            tree_lib.flatten_with_path(card["params"]),
+            tree_lib.leaves(cpu["params"]),
+            tree_lib.leaves(card["opt"]["mu"]),
+            tree_lib.leaves(cpu["opt"]["mu"])):
+        g_card, g_cpu = mu_c.cpu() / 0.1, mu_w / 0.1
+        scale = float(g_cpu.abs().max())
+        if scale == 0:
+            assert float(g_card.abs().max()) == 0, path
+            continue
+        grad_rel[path] = float((g_card - g_cpu).abs().max()) / scale
+        d = TOL_BF16_GRAD * scale
+        got, want = got.detach().cpu().float(), want.detach().float()
+        room = (ocfg.lr * torch.clamp(
+            2 * d / (torch.maximum(g_card.abs(), g_cpu.abs()) + ocfg.eps),
+            max=2.0)
+            + 2.0 ** -7 * torch.maximum(got.abs(), want.abs()))
+        param_use = max(param_use, float(((got - want).abs() / room).max()))
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"bf16 step card vs CPU: loss {rel['loss']:.3g} gnorm "
+          f"{rel['gnorm']:.3g}; gradient {grad_rel[worst]:.3g} at {worst}; "
+          f"parameters at {param_use:.3g} of their bound")
+    for key in ("loss", "gnorm"):
+        assert rel[key] <= TOL_BF16_STEP[key], (key, rel)
+    assert grad_rel[worst] <= TOL_BF16_GRAD, (worst, grad_rel)
+    assert param_use <= 1.0
+
+
+def test_wrappers_refuse_grad_operands_on_card(cuda):
+    """The guard holds on CUDA tensors too: no launch, a RuntimeError."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as sops
+    a, b = _gates((2, 8, 6), cuda)
+    q, k, v = _qkv(1, 2, 1, 8, 16, torch.float32, cuda)
+    samples = torch.randn((4, 3, 2), device=cuda)
+    before = (sops.rglru_scan.launches, fa_ops.flash_attention.launches,
+              moops.moments.launches, mops.masked_ffn.launches)
+    calls = (
+        lambda: sops.rglru_scan(a.requires_grad_(True), b),
+        lambda: sops.rglru_scan_backward(a.detach(), b,
+                                         b.clone().requires_grad_(True)),
+        lambda: fa_ops.flash_attention(q.requires_grad_(True), k, v),
+        lambda: moops.moments(samples.requires_grad_(True)),
+        lambda: mops.masked_ffn(
+            torch.randn((4, 3), device=cuda, requires_grad=True),
+            *(torch.randn(s, device=cuda)
+              for s in ((2, 3, 5), (2, 5), (2, 5, 2), (2,)))))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
+    assert before == (sops.rglru_scan.launches,
+                      fa_ops.flash_attention.launches,
+                      moops.moments.launches, mops.masked_ffn.launches)

@@ -10,6 +10,9 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.configs import registry
+from repro_torch.data import LMDataConfig, lm_batch
+from repro_torch.optim import OptimizerConfig, build_optimizer
+from repro_torch.train import TrainConfig, Trainer, train_state_init
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import transform
 from repro_torch.ivim import evaluate as ivim_eval
@@ -40,7 +43,8 @@ def test_port_imports_no_jax_and_no_reference():
         "          'core.latency_model', 'ivim.train', 'ivim.evaluate',\n"
         "          'serving.router', 'serving.faults',\n"
         "          'distributed.straggler', 'distributed.elastic',\n"
-        "          'obs.crosscheck'):\n"
+        "          'obs.crosscheck', 'data.pipeline', 'optim.optimizers',\n"
+        "          'train.trainer', 'distributed.checkpoint', 'core.tree'):\n"
         "    assert 'repro_torch.' + n in names, names\n"
         "assert len(names) >= 60, names\n"
         "print(len(names))\n")
@@ -91,6 +95,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: transform.convert(transform.MlpSpec((3, 4, 2), (1,)), 2,
                                   2.0, torch.Generator().manual_seed(0)),
         lambda: device_lib.resolve(None),
+        lambda: lm_batch(LMDataConfig(vocab_size=8, seq_len=4,
+                                      global_batch=2), 0),
+        lambda: train_state_init(lm, build_optimizer(OptimizerConfig()),
+                                 torch.Generator().manual_seed(0)),
+        lambda: Trainer(lm, build_optimizer(OptimizerConfig()),
+                        TrainConfig(), LMDataConfig(vocab_size=8, seq_len=4,
+                                                    global_batch=2)),
         lambda: device_lib.resolve("cuda"),
     ]
     for call in calls:
