@@ -119,7 +119,11 @@ Phases, each on its own line; any failure raises and exits nonzero:
      ``flash_attention`` once a layer (28 launches, asserted); each leg's
      moments launches (one a posterior) are printed;
   6. the hybrid kernels vs plain on the card: ``rglru_scan`` at the served,
-     a long and a ragged shape, ``flash_attention`` at the recurrentgemma-2b
+     the hybrid training, a long and a ragged shape (each with its share of
+     the byte bound; two launches at the long shape bit-equal), its
+     backward at the training shape on two gate draws
+     (``[scan_bwd_gates]``, again after the training legs),
+     ``flash_attention`` at the recurrentgemma-2b
      and qwen2-1.5b prefill shapes (bf16 on the tensor cores; fp32 on the
      CUDA cores; full attention; a ragged shape), with
      ``scaled_dot_product_attention`` timed beside it, in events and in
@@ -196,7 +200,9 @@ Phases, each on its own line; any failure raises and exits nonzero:
      fp32 step on the card against the CPU; ``[train_hybrid]``
      recurrentgemma-2b with 6 ``rglru_scan`` launches a step asserted (2
      forward, 2 remat recompute, 2 backward); ``[train_kernel]`` the
-     scan's backward kernel against autograd through the plain version;
+     scan's backward kernel against autograd through the plain version,
+     with its share of the byte bound (two launches at the long shape
+     bit-equal);
  18. one JSON line with every kernel's numbers (the server's and the
      router's launches as ``server_launches``, ``router_launches`` and
      ``router_faulted_launches``, the backbone phases' as
@@ -896,6 +902,37 @@ def flash_case(gen, dev, time_ms, bound, nbytes, name, dims, dt,
     return rec
 
 
+def scan_bwd_gates_phase(dev, time_ms, when: str) -> dict:
+    """``[scan_bwd_gates]``: the scan's backward at the hybrid training
+    shape, timed on both gate draws of this script (``[hy_kernel]``'s a in
+    [0.85, 0.999); ``[train_kernel]``'s a = lam ** (8 u), lam in [0.9,
+    0.999) a channel), the same data every call. Run in phase 6 and again
+    after the training legs: a gap between the phases' readings of one
+    shape is told apart into inputs and the card's state."""
+    import torch
+    from repro_torch.kernels.rglru_scan import ops as sc_ops
+
+    gen = torch.Generator(dev).manual_seed(6)
+    shape = (TRAIN_HY_B, TRAIN_HY_S, 2560)
+    rec = {}
+    for draw in ("hy", "train"):
+        if draw == "hy":
+            a = 0.85 + 0.149 * torch.rand(shape, generator=gen, device=dev)
+        else:
+            lam = 0.9 + 0.099 * torch.rand(shape[-1], generator=gen,
+                                           device=dev)
+            a = lam ** (8 * torch.rand(shape, generator=gen, device=dev))
+        b = torch.randn(shape, generator=gen, device=dev) \
+            * torch.sqrt(1 - a * a)
+        g = torch.randn(shape, generator=gen, device=dev)
+        h = sc_ops.rglru_scan(a, b)
+        rec[f"{draw}_gates_ms"] = time_ms(
+            lambda: sc_ops.rglru_scan_backward(a, h, g))
+        del a, b, g, h
+    _phase("scan_bwd_gates", when=when, dims=list(shape), **rec)
+    return rec
+
+
 def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
     """Phases 6 and 7: ``rglru_scan`` and ``flash_attention`` against their
     plain versions, then recurrentgemma-2b served at full width and depth,
@@ -926,12 +963,16 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
     # ---- phase 6: the two kernels against their plain versions ------------
     scan = {}
     for name, shape in (("served", (32, LM_PROMPT, 2560)),
+                        ("train", (TRAIN_HY_B, TRAIN_HY_S, 2560)),
                         ("long", (4, 4096, 2560)), ("ragged", (3, 37, 11))):
         a = 0.85 + 0.149 * torch.rand(shape, generator=gen, device=dev)
         b = torch.randn(shape, generator=gen, device=dev) \
             * torch.sqrt(1 - a * a)
         got, want = sc_ops.rglru_scan(a, b), sc_ref.rglru_scan_ref(a, b)
         torch.testing.assert_close(got, want, rtol=TOL_SCAN, atol=TOL_SCAN)
+        if name == "long" and not torch.equal(got, sc_ops.rglru_scan(a, b)):
+            raise AssertionError("[hy_kernel] rglru_scan: two launches at "
+                                 "the long shape differ")
         rec = {"shape": name, "dims": list(shape),
                "max_abs_err": float((got - want).abs().max()),
                "ms": time_ms(lambda: sc_ops.rglru_scan(a, b)),
@@ -939,9 +980,11 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
         # one FMA and 12 bytes (a and b read, h written) an element
         rec["bound_ms"], rec["bound_by"] = bound(2 * a.numel(),
                                                  3 * 4 * a.numel())
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         _phase("hy_kernel", name="rglru_scan", **rec)
         scan[name] = rec
         del a, b, got, want
+    scan_bwd_gates_phase(dev, time_ms, "phase 6")
 
     flash = {}
     for name, b, h, hkv, s, dh, dt, causal in (
@@ -1083,8 +1126,9 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
          "ms": main_s["ms"], "kernel_ms": main_s["ms"],
          "plain_ms": main_s["plain_ms"], "bound_ms": main_s["bound_ms"],
          "bound_by": main_s["bound_by"], "library_ms": None,
-         "long_ms": scan["long"]["ms"],
-         "long_bound_ms": scan["long"]["bound_ms"],
+         "bound_share": main_s["bound_share"],
+         **{f"{n}_{k}": scan[n][k] for n in ("train", "long")
+            for k in ("ms", "bound_ms", "bound_share")},
          "ragged_ms": scan["ragged"]["ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2933,6 +2977,8 @@ def train_phases(dev, time_ms, bound, counters) -> dict:
            scan_backward_per_step=TRAIN_HY_SCAN_BACKWARD,
            losses=[round(x, 4) for x in losses], **hy)
 
+    scan_bwd_gates_phase(dev, time_ms, "after training")
+
     # ---- [train_kernel]: the backward kernel against plain autograd -------
     gen = torch.Generator(dev).manual_seed(5)
     kernel = {}
@@ -2958,6 +3004,12 @@ def train_phases(dev, time_ms, bound, counters) -> dict:
             raise AssertionError(f"[train_kernel] {name}: backward error "
                                  f"{err:.3g} of the magnitude")
         h = sc_ops.rglru_scan(a, b)
+        if name == "long" and not all(
+                torch.equal(x, y) for x, y in zip(
+                    sc_ops.rglru_scan_backward(a, h, g),
+                    sc_ops.rglru_scan_backward(a, h, g))):
+            raise AssertionError("[train_kernel] rglru_scan_backward: two "
+                                 "launches at the long shape differ")
         rec = {"shape": name, "dims": list(shape), "rel_err": err,
                "max_abs_err": max(float((k - p).abs().max())
                                   for k, p in ((k_da, p_da), (k_db, p_db))),
@@ -2969,6 +3021,7 @@ def train_phases(dev, time_ms, bound, counters) -> dict:
         # one FMA and a product an element; a, h, g read, da, db written
         rec["bound_ms"], rec["bound_by"] = bound(3 * a.numel(),
                                                  5 * 4 * a.numel())
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         _phase("train_kernel", name="rglru_scan_backward", **rec)
         kernel[name] = rec
         del a, b, g, h, ka, kb, pa, pb, k_da, k_db, p_da, p_db
@@ -3457,9 +3510,11 @@ def main() -> int:
                 "backward_max_abs_err": max(r["max_abs_err"]
                                             for r in bwd.values()),
                 "backward_rel_err": max(r["rel_err"] for r in bwd.values()),
+                "backward_bound_share": main_bwd["bound_share"],
                 "backward_shapes": {n: {k: r[k] for k in (
                     "dims", "ms", "plain_ms", "autograd_plain_ms",
-                    "bound_ms", "rel_err")} for n, r in bwd.items()}})
+                    "bound_ms", "bound_share", "rel_err")}
+                    for n, r in bwd.items()}})
     decode_rec["server_shapes"] = {
         f"active_{a}": {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "rel_err")}

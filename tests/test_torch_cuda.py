@@ -1329,6 +1329,214 @@ def test_rglru_scan_function_grads_match_plain_autograd(cuda, shape):
         assert float((k - p).abs().max()) <= TOL_SCAN_BWD_REL * scale
 
 
+# ---------------------------------------------------------------------------
+# the chunked scan (csrc/rglru_scan.cu): chunk edges, layouts, determinism
+# ---------------------------------------------------------------------------
+
+# the kernels cut time into chunks of 64 steps (kWarps x kFwdSteps and
+# kWarps x kBwdSteps, 8 warps of 8 steps, constants), whatever B and W
+SCAN_CHUNK = 64
+# a in [0.999, 0.9999] over S 16,384: the carry crosses 256 chunks and the
+# state remembers 10^3-10^4 steps. Against the plain scan in float64 (on
+# the fp32 inputs), over the float64 result's largest magnitude: fp32 rounds
+# each step by up to 2^-24 of |h|, and those errors add like a random walk
+# over the state's memory, sqrt(10^4) 2^-24 = 6e-6 at most; a CPU emulation
+# of the kernel's chunk order read 7e-7 forward and 9e-7 backward
+TOL_SLOW_DECAY_REL = 1e-5
+
+
+def _scan(sops, direction, a, b, g):
+    """The kernel's output(s) in ``direction``: (h,) forward; (da, db)
+    backward, from the h the plain version gives."""
+    if direction == "forward":
+        return (sops.rglru_scan(a, b),)
+    from repro_torch.kernels.rglru_scan import ref as sref
+    return sops.rglru_scan_backward(a, sref.rglru_scan_ref(a, b), g)
+
+
+def _scan_against_plain(sops, direction, a, b, g):
+    from repro_torch.kernels.rglru_scan import ref as sref
+    got = _scan(sops, direction, a, b, g)
+    if direction == "forward":
+        torch.testing.assert_close(got[0], sref.rglru_scan_ref(a, b),
+                                   rtol=TOL_SCAN, atol=TOL_SCAN)
+        return got
+    want = sref.rglru_scan_bwd_ref(a, sref.rglru_scan_ref(a, b), g)
+    for k, p in zip(got, want):
+        scale = float(p.abs().max()) or 1.0
+        assert float((k - p).abs().max()) <= TOL_SCAN_BWD_REL * scale
+    return got
+
+
+def _scan_inputs(shape, device, seed):
+    a, b = _gates(shape, device, seed=seed)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(seed + 1))
+    return a, b, g.to(device)
+
+
+@pytest.mark.parametrize("direction", ("forward", "backward"))
+@pytest.mark.parametrize("shape", [
+    (2, 1, 256),                    # one step
+    (2, SCAN_CHUNK - 1, 256),       # one chunk, short of full
+    (2, SCAN_CHUNK, 256),           # one full chunk
+    (2, SCAN_CHUNK + 1, 256),       # a second chunk of one step
+    (2, 3 * SCAN_CHUNK, 256),       # a multiple of the chunk
+    (2, 4099, 256),                 # many chunks, ragged tail
+    (1, 16384, 4)])                 # a long S over few channels
+def test_rglru_scan_chunk_edges(cuda, shape, direction):
+    from repro_torch.kernels.rglru_scan import ops as sops
+    a, b, g = _scan_inputs(shape, cuda, seed=sum(shape))
+    _scan_against_plain(sops, direction, a, b, g)
+
+
+@pytest.mark.parametrize("direction", ("forward", "backward"))
+@pytest.mark.parametrize("layout", ("ragged_w", "offset_base"))
+def test_rglru_scan_odd_layouts(cuda, layout, direction):
+    """A W that is not a multiple of 4, and contiguous operands whose base
+    is one element past a 16-byte boundary: the scalar loads, against the
+    plain version; the offset operands give the aligned operands' bits."""
+    from repro_torch.kernels.rglru_scan import ops as sops
+    shape = (3, 2 * SCAN_CHUNK + 5, 130 if layout == "ragged_w" else 256)
+    a, b, g = _scan_inputs(shape, cuda, seed=7)
+    if layout == "ragged_w":
+        _scan_against_plain(sops, direction, a, b, g)
+        return
+
+    def offset(x):
+        buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        return view
+
+    got = _scan_against_plain(sops, direction, offset(a), offset(b),
+                              offset(g))
+    for x, y in zip(got, _scan(sops, direction, a, b, g)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("direction", ("forward", "backward"))
+def test_rglru_scan_two_launches_bit_equal(cuda, direction):
+    from repro_torch.kernels.rglru_scan import ops as sops
+    a, b, g = _scan_inputs((4, 4096, 512), cuda, seed=3)
+    for x, y in zip(_scan(sops, direction, a, b, g),
+                    _scan(sops, direction, a, b, g)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("direction", ("forward", "backward"))
+def test_rglru_scan_rows_independent_of_batch(cuda, direction):
+    """The first rows of a batch of 8 equal, bit for bit, the same rows
+    run as a batch of 3 (another grid, another schedule)."""
+    from repro_torch.kernels.rglru_scan import ops as sops
+    a, b, g = _scan_inputs((8, 1000, 384), cuda, seed=5)
+    full = _scan(sops, direction, a, b, g)
+    part = _scan(sops, direction, *(x[:3].contiguous() for x in (a, b, g)))
+    for x, y in zip(full, part):
+        assert torch.equal(x[:3], y)
+
+
+@pytest.mark.parametrize("direction", ("forward", "backward"))
+def test_rglru_scan_replays_in_a_cuda_graph(cuda, direction):
+    """The kernels keep their tickets and epochs on the card: a launch
+    captured once (after an eager launch on the capture stream) replays on
+    new inputs with the bits of a direct launch."""
+    from repro_torch.kernels.rglru_scan import ops as sops
+    shape = (2, 3 * SCAN_CHUNK + 7, 256)
+    a, b, g = _scan_inputs(shape, cuda, seed=13)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        _scan(sops, direction, a, b, g)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = _scan(sops, direction, a, b, g)
+    for seed in (14, 15, 16):
+        for x, y in zip((a, b, g), _scan_inputs(shape, cuda, seed=seed)):
+            x.copy_(y)
+        graph.replay()
+        torch.cuda.synchronize(cuda)
+        for x, y in zip(captured, _scan(sops, direction, a, b, g)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("direction", ("forward", "backward"))
+@pytest.mark.parametrize("warm", (False, True))
+def test_rglru_scan_graph_owns_its_workspace(cuda, direction, warm):
+    """A capture owns its workspace, on a stream that never ran a scan
+    (``warm`` False: larger eager launches there after the capture replace
+    the stream's workspace) or on one whose workspace a larger eager launch
+    made first (``warm`` True: it is large enough for the capture). A
+    replay on a third stream of higher priority, started while an eager
+    launch runs on the capture stream (so its blocks start between the
+    eager launch's), gives the bits of a direct launch, and so does the
+    eager launch."""
+    from repro_torch.kernels.rglru_scan import ops as sops
+    from repro_torch.kernels.rglru_scan import ref as sref
+
+    def launch(a, b, g, h):
+        if direction == "forward":
+            return (sops.rglru_scan(a, b),)
+        return sops.rglru_scan_backward(a, h, g)
+
+    # the eager launch is 10,240 blocks (past a stream's least workspace)
+    # and runs ~0.4-0.7 ms; the replay waits 25-250 us on its stream first
+    shape, big_shape = (2, 3 * SCAN_CHUNK + 7, 256), (4, 8192, 2560)
+    small = [_scan_inputs(shape, cuda, seed=s) for s in (17, 19, 20, 21)]
+    small = [(a, b, g, sref.rglru_scan_ref(a, b)) for a, b, g in small]
+    big = _scan_inputs(big_shape, cuda, seed=18)
+    big = (*big, sref.rglru_scan_ref(*big[:2]))
+    big_want = launch(*big)                  # the library loaded, uncaptured
+    inputs = tuple(x.clone() for x in small[0])
+    side = torch.cuda.Stream(cuda)
+    other = torch.cuda.Stream(cuda, priority=-1)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    if warm:
+        with torch.cuda.stream(side):
+            launch(*big)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = launch(*inputs)
+    for new, cycles in zip(small[1:], (50_000, 200_000, 500_000)):
+        for x, y in zip(inputs, new):
+            x.copy_(y)
+        side.wait_stream(torch.cuda.current_stream(cuda))
+        other.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(side):
+            big_got = launch(*big)
+        with torch.cuda.stream(other):
+            torch.cuda._sleep(cycles)
+            graph.replay()
+        torch.cuda.synchronize(cuda)
+        for x, y in zip(captured, launch(*new)):
+            assert torch.equal(x, y)
+        for x, y in zip(big_got, big_want):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("direction", ("forward", "backward"))
+def test_rglru_scan_slow_decay_against_float64(cuda, direction):
+    from repro_torch.kernels.rglru_scan import ops as sops
+    from repro_torch.kernels.rglru_scan import ref as sref
+    gen = torch.Generator().manual_seed(11)
+    shape = (2, 16384, 8)
+    a = 0.999 + 0.0009 * torch.rand(shape, generator=gen)
+    b = torch.randn(shape, generator=gen) * torch.sqrt(1 - a * a)
+    g = torch.randn(shape, generator=gen)
+    a, b, g = (x.to(cuda) for x in (a, b, g))
+    a64, b64, g64 = (x.double() for x in (a, b, g))
+    h64 = sref.rglru_scan_ref(a64, b64)
+    if direction == "forward":
+        got, want = (sops.rglru_scan(a, b),), (h64,)
+    else:
+        got = sops.rglru_scan_backward(a, h64.float(), g)
+        want = sref.rglru_scan_bwd_ref(a64, h64, g64)
+    for k, p in zip(got, want):
+        rel = float((k.double() - p).abs().max() / p.abs().max())
+        assert rel <= TOL_SLOW_DECAY_REL, rel
+
+
 # one bf16 train step of the smoke qwen2, card against CPU (bf16 products
 # and sums in another order), about twice to ten times what an H100 read
 # (NVIDIA H100 80GB HBM3, 700.00 W): loss 6.8e-6 and gnorm 1.8e-4 relative;
