@@ -62,6 +62,12 @@ and read just after:
   int8 error feedback, Adafactor), a ``Trainer`` cut and resumed from its
   checkpoints, and ``recurrentgemma-2b`` at 3 layers, whose RG-LRU scan
   trains through the ``rglru_scan`` kernels (forward and backward).
+* The mesh layer, in a world of 1 (NCCL refuses two ranks on one card):
+  the same qwen2-1.5b training step on DTensors over a (1, 1)
+  ``("data", "model")`` ``DeviceMesh`` (``distributed.sharding``), the
+  hybrid's with the scan on each rank's local shard, an elastic restart
+  through a resharding checkpoint, the int8 all-reduce and a pipeline
+  stage on NCCL, and ``serve_uncertain(mesh=)``.
 
 Phases, each on its own line; any failure raises and exits nonzero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -203,12 +209,28 @@ Phases, each on its own line; any failure raises and exits nonzero:
      scan's backward kernel against autograd through the plain version,
      with its share of the byte bound (two launches at the long shape
      bit-equal);
- 18. one JSON line with every kernel's numbers (the server's and the
+ 18-22. the mesh layer (``mesh_phases``), each phase in a one-rank NCCL
+     group of its own: ``[train_sharded]`` qwen2-1.5b at [train]'s size,
+     state laid out by ``param_shardings`` and batches by
+     ``batch_shardings``, TRAIN_WARM + 3 steps against the unsharded step
+     from the same state (every loss within 1e-5; ms a step of both, peak
+     memory, the largest parameter gap; no kernel launched), then one more
+     step of each under the profiler (``[train_sharded_profile]``: wall
+     and device ms, the device's busy share, kernels a step);
+     ``[train_sharded_hybrid]`` recurrentgemma-2b at 3 layers with 6
+     ``rglru_scan`` launches a step asserted (2 backward); ``[elastic]``
+     save from the mesh, ``plan_remesh``, ``mesh_from_plan``, restore with
+     ``shardings=``, one step against the same step without the round
+     trip; ``[collectives]`` ``compressed_allreduce`` bit-equal to the
+     plain quantize-dequantize, a 1-stage ``pipeline_forward`` against
+     ``stage_fn``; ``[serve_mesh]`` ``serve_uncertain(mesh=)`` bit-equal to
+     ``mesh=None`` with the same launches;
+ 23. one JSON line with every kernel's numbers (the server's and the
      router's launches as ``server_launches``, ``router_launches`` and
      ``router_faulted_launches``, the backbone phases' as
      ``backbone_launches`` by architecture, the training runs' as
-     ``train_launches``; the scan's backward as ``backward_*``), then the
-     device line.
+     ``train_launches``, the mesh phases' as ``mesh_launches``; the scan's
+     backward as ``backward_*``), then the device line.
 
 Weights are random from ``torch.Generator`` seeds (IVIM: seed 0 with
 non-trivial BN running statistics from seed 1; LM: seed 0); the data is
@@ -419,6 +441,34 @@ TRAIN_HY_SCAN_LAUNCHES, TRAIN_HY_SCAN_BACKWARD = 6, 2
 TRAIN_KERNEL_SHAPES = (("train", (8, 1024, 2560)), ("served", (32, 128, 2560)),
                        ("long", (4, 4096, 2560)))
 TOL_SCAN_BWD_REL = 1e-5
+# the mesh layer (phases 18-22). NCCL refuses two ranks on one device, so
+# the card runs a world of 1: a (1, 1) ("data", "model") mesh over an NCCL
+# group (file:// rendezvous, 60 s timeout), each phase in a group of its
+# own; the math across ranks is held on the CPU (tests/test_torch_
+# distributed*.py, test_torch_elastic.py on gloo ranks). The sharded step
+# runs TRAIN_WARM + 3 steps of [train]'s AdamW leg against the unsharded
+# step from the same state and batches: every step's loss within 1e-5
+# relative (TF32 off, the same products on the same local tensors).
+MESH_SHAPE, MESH_DIMS = (1, 1), ("data", "model")
+MESH_STEPS = TRAIN_WARM + 3
+TOL_MESH_LOSS = 1e-5
+# [elastic]: qwen2-1.5b cut to 4 layers at full width, B 4 x S 2048: save
+# from the mesh, plan_remesh, mesh_from_plan, restore with shardings=, one
+# step, against the same step without the round trip: the loss bit-equal
+# (the forward's products are repeatable), gnorm 1e-5, each parameter
+# within one bf16 step of its value (the embedding's backward accumulates
+# with atomics, so a bf16 weight may round the other way)
+MESH_ELASTIC_LAYERS = 4
+# [collectives]: compressed_allreduce on a [4096, 1536] fp32 leaf;
+# a 1-stage pipeline_forward of tanh(h @ w) over 4 microbatches of 2 rows
+# at width 1536 against stage_fn on the whole batch (cuBLAS may pick
+# another kernel for 2 rows than for 8: 1e-5)
+MESH_ALLREDUCE_SHAPE, MESH_PIPE_WIDTH, MESH_PIPE_B = (4096, 1536), 1536, 8
+TOL_MESH_PIPE = 1e-5
+# [serve_mesh]: serve_uncertain on qwen2-1.5b at 2 layers (published
+# widths, bf16), the LM traffic, per-op decode (the fused step sums across
+# blocks with float atomics: two runs need not agree bit for bit)
+MESH_SERVE_LAYERS = 2
 
 
 def _phase(phase: str, /, **fields) -> None:
@@ -3032,6 +3082,375 @@ def train_phases(dev, time_ms, bound, counters) -> dict:
             "kernel": kernel, "train": train, "hybrid": hy}
 
 
+def mesh_phases(dev, time_ms, counters) -> dict:
+    """Phases 18-22: the mesh layer on the card, a world of 1 (NCCL; gloo
+    when rehearsed on the CPU). ``[train_sharded]``: qwen2-1.5b at
+    [train]'s size on DTensors laid out by ``param_shardings`` /
+    ``batch_shardings`` against the unsharded step; ``[train_sharded_
+    hybrid]``: recurrentgemma-2b at 3 layers with the scan's launches a
+    step asserted; ``[elastic]``: save from the mesh, remesh, restore with
+    ``shardings=``, step; ``[collectives]``: ``compressed_allreduce`` and a
+    1-stage ``pipeline_forward``; ``[serve_mesh]``: ``serve_uncertain``
+    under the mesh against ``mesh=None``. Returns the launches of the runs
+    on a mesh by kernel (``KERNEL_NAMES``) and the scan's backward
+    launches among them."""
+    import contextlib
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import registry
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.distributed import checkpoint as ckpt_lib
+    from repro_torch.distributed import (compression, elastic, pipeline,
+                                         sharding)
+    from repro_torch.kernels.rglru_scan import ops as sc_ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as lm_model
+    from repro_torch.optim import OptimizerConfig, build_optimizer
+    from repro_torch.serving import engine
+    from repro_torch.train import (TrainConfig, make_train_step,
+                                   train_state_init, train_state_specs)
+
+    t_phases = time.perf_counter()
+    totals = dict.fromkeys(KERNEL_NAMES, 0)
+    backward_total = 0
+
+    def reset():
+        _reset_counts(counters)
+        sc_ops.rglru_scan.backward_launches = 0
+
+    def add_counts(meshed: bool = True) -> dict:
+        """The launches since ``reset``; tallied when the run was on a
+        mesh (the unsharded runs beside them are not the mesh's path)."""
+        nonlocal backward_total
+        counts = _launch_counts(counters)
+        if meshed:
+            for name, n in counts.items():
+                totals[name] += n
+            backward_total += sc_ops.rglru_scan.backward_launches
+        return counts
+
+    @contextlib.contextmanager
+    def world():
+        """A one-rank process group on the card, destroyed on exit."""
+        with tempfile.TemporaryDirectory() as d:
+            mesh_lib.init_world(f"file://{d}/rendezvous", 0, 1,
+                                device_type=dev.type)
+            try:
+                yield
+            finally:
+                dist.destroy_process_group()
+
+    def mesh_2d():
+        return mesh_lib.make_mesh(MESH_SHAPE, MESH_DIMS,
+                                  device_type=dev.type)
+
+    def on_mesh(step_fn, mesh):
+        """``step_fn`` on DTensors: the batch laid out by batch_shardings,
+        under the mesh and implicit replication."""
+        def run(state, batch):
+            batch = sharding.distribute_tree(
+                batch, sharding.batch_shardings(mesh, batch))
+            with mesh_lib.use_mesh(mesh), implicit_replication():
+                return step_fn(state, batch)
+        return run
+
+    def value(t) -> float:
+        return float(t.full_tensor() if isinstance(t, DTensor) else t)
+
+    def run_steps(step_fn, state, batches, check=None, meshed=True):
+        """Steps over ``batches``: (state, losses, gnorms, step seconds);
+        ``check(step, counts)`` after each step."""
+        losses, gnorms, secs = [], [], []
+        for i, batch in enumerate(batches):
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            loss = value(metrics["loss"])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            counts = add_counts(meshed)
+            if check:
+                check(i, counts)
+            losses.append(loss)
+            gnorms.append(value(metrics["gnorm"]))
+        return state, losses, gnorms, secs
+
+    def no_launches(step, counts):
+        if any(counts.values()):
+            raise AssertionError(f"step {step}: kernel launches {counts}; "
+                                 f"this step takes none")
+
+    def ms(secs) -> float:
+        return 1e3 * statistics.median(secs[TRAIN_WARM:] or secs)
+
+    def params_gap(a, b) -> float:
+        return max(float((x.detach().float() - y.detach().float())
+                         .abs().max())
+                   for x, y in zip(tree_lib.leaves(a), tree_lib.leaves(b)))
+
+    # ---- [train_sharded]: qwen2-1.5b, all 28 layers ------------------------
+    cfg = registry.get_config(TRAIN_ARCH, mask_samples=LM_MASKS,
+                              remat="full")
+    model = lm_model.build_model(cfg)
+    opt = build_optimizer(OptimizerConfig(name="adamw", **TRAIN_OPT))
+    step_fn = make_train_step(model, opt, TrainConfig())
+    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                        global_batch=TRAIN_B)
+    batches = [lm_batch(data, i, dev) for i in range(MESH_STEPS + 1)]
+    profiled = batches.pop()            # one more step, under the profiler
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plain = train_state_init(model, opt, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+    plain, p_losses, p_gnorms, p_secs = run_steps(
+        step_fn, plain, batches, no_launches, meshed=False)
+    p_peak = torch.cuda.max_memory_allocated() / 1e9
+    p_prof = call_profile(lambda: step_fn(plain, profiled), reps=1)
+    # on the host, so the sharded run's peak holds its own state alone
+    p_params = tree_lib.tree_map(lambda t: t.detach().cpu(), plain["params"])
+    del plain
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with world():
+        mesh = mesh_2d()
+        state = train_state_init(model, opt,
+                                 torch.Generator(dev).manual_seed(0),
+                                 device=dev)
+        state = sharding.distribute_tree(
+            state, sharding.param_shardings(mesh, state))
+        state, s_losses, s_gnorms, s_secs = run_steps(
+            on_mesh(step_fn, mesh), state, batches, no_launches)
+        s_peak = torch.cuda.max_memory_allocated() / 1e9
+        s_prof = call_profile(
+            lambda: on_mesh(step_fn, mesh)(state, profiled), reps=1)
+        gap = params_gap(tree_lib.tree_map(
+            lambda t: t.cpu(), sharding.gather_tree(state["params"])),
+            p_params)
+        placements = sorted({str(t.placements)
+                             for t in tree_lib.leaves(state["params"])})
+        del state
+    del p_params
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(s_losses, p_losses))
+    _phase("train_sharded", arch=TRAIN_ARCH, layers=cfg.n_layers,
+           dtype=cfg.dtype, batch=TRAIN_B, seq=TRAIN_S, mesh=MESH_SHAPE,
+           steps=MESH_STEPS, ms_per_step=ms(s_secs),
+           unsharded_ms_per_step=ms(p_secs),
+           ratio=ms(s_secs) / ms(p_secs), first_step_s=s_secs[0],
+           unsharded_first_step_s=p_secs[0], peak_gb=s_peak,
+           unsharded_peak_gb=p_peak, losses=s_losses,
+           unsharded_losses=p_losses, loss_max_rel=rel,
+           gnorm_max_rel=max(abs(a - b) / abs(b)
+                             for a, b in zip(s_gnorms, p_gnorms)),
+           params_max_abs_gap=gap, placements=placements,
+           launches=dict.fromkeys(KERNEL_NAMES, 0))
+    _phase("train_sharded_profile", arch=TRAIN_ARCH,
+           **{f"{k}": s_prof[k] for k in ("wall_ms", "device_ms",
+                                          "device_busy_share", "kernels")},
+           **{f"unsharded_{k}": p_prof[k]
+              for k in ("wall_ms", "device_ms", "device_busy_share",
+                        "kernels")},
+           top_kernels_us=s_prof["top_kernels_us"])
+    if not rel <= TOL_MESH_LOSS:
+        raise AssertionError(f"[train_sharded] losses {s_losses} against "
+                             f"the unsharded {p_losses} (rel {rel:.3g})")
+
+    # ---- [train_sharded_hybrid]: recurrentgemma-2b, the scan on shards ----
+    hcfg = registry.get_config(HY_ARCH, mask_samples=LM_MASKS,
+                               n_layers=TRAIN_HY_LAYERS, remat="full")
+    hmodel = lm_model.build_model(hcfg)
+    hstep = make_train_step(hmodel, opt, TrainConfig())
+    hdata = LMDataConfig(vocab_size=hcfg.vocab_size, seq_len=TRAIN_HY_S,
+                         global_batch=TRAIN_HY_B)
+    hbatches = [lm_batch(hdata, i, dev) for i in range(MESH_STEPS)]
+
+    def scan_launches(step, counts):
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        want["rglru_scan"] = TRAIN_HY_SCAN_LAUNCHES
+        back = sc_ops.rglru_scan.backward_launches
+        if counts != want or back != TRAIN_HY_SCAN_BACKWARD:
+            raise AssertionError(f"[train_sharded_hybrid] step {step}: "
+                                 f"launches {counts}, backward {back}; "
+                                 f"expected {want}, backward "
+                                 f"{TRAIN_HY_SCAN_BACKWARD}")
+
+    plain = train_state_init(hmodel, opt,
+                             torch.Generator(dev).manual_seed(0), device=dev)
+    plain, hp_losses, _, hp_secs = run_steps(hstep, plain, hbatches,
+                                             scan_launches, meshed=False)
+    del plain
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(totals)
+    with world():
+        mesh = mesh_2d()
+        state = train_state_init(hmodel, opt,
+                                 torch.Generator(dev).manual_seed(0),
+                                 device=dev)
+        state = sharding.distribute_tree(
+            state, sharding.param_shardings(mesh, state))
+        state, h_losses, _, h_secs = run_steps(
+            on_mesh(hstep, mesh), state, hbatches, scan_launches)
+        del state
+    torch.cuda.empty_cache()
+    _phase("train_sharded_hybrid", arch=HY_ARCH, layers=TRAIN_HY_LAYERS,
+           dtype=hcfg.dtype, batch=TRAIN_HY_B, seq=TRAIN_HY_S,
+           mesh=MESH_SHAPE, steps=MESH_STEPS, ms_per_step=ms(h_secs),
+           unsharded_ms_per_step=ms(hp_secs),
+           ratio=ms(h_secs) / ms(hp_secs), first_step_s=h_secs[0],
+           peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+           losses=h_losses, unsharded_losses=hp_losses,
+           loss_max_rel=max(abs(a - b) / abs(b)
+                            for a, b in zip(h_losses, hp_losses)),
+           scan_launches_per_step=TRAIN_HY_SCAN_LAUNCHES,
+           scan_backward_per_step=TRAIN_HY_SCAN_BACKWARD,
+           launches={k: totals[k] - before[k] for k in KERNEL_NAMES})
+
+    # ---- [elastic]: save on the mesh, remesh, restore, step ---------------
+    ecfg = dataclasses.replace(cfg, n_layers=MESH_ELASTIC_LAYERS)
+    emodel = lm_model.build_model(ecfg)
+    estep = make_train_step(emodel, opt, TrainConfig())
+    batch = lm_batch(LMDataConfig(vocab_size=ecfg.vocab_size,
+                                  seq_len=TRAIN_S, global_batch=TRAIN_B),
+                     0, dev)
+    with tempfile.TemporaryDirectory() as ckdir:
+        with world():
+            mesh = mesh_2d()
+            state = train_state_init(emodel, opt,
+                                     torch.Generator(dev).manual_seed(0),
+                                     device=dev)
+            state = sharding.distribute_tree(
+                state, sharding.param_shardings(mesh, state))
+            t0 = time.perf_counter()
+            path = ckpt_lib.save_checkpoint(ckdir, 0, state)
+            write_s = time.perf_counter() - t0
+            reset()
+            state, m = on_mesh(estep, mesh)(state, batch)
+            no_launches(0, add_counts())
+            want_loss, want_gnorm = value(m["loss"]), value(m["gnorm"])
+            want = sharding.gather_tree(state["params"])
+            del state
+        ckpt_gb = sum(f.stat().st_size for f in Path(path).rglob("*")
+                      if f.is_file()) / 1e9
+        plan = elastic.plan_remesh(dict(zip(MESH_DIMS, MESH_SHAPE)), 1)
+        with world():
+            mesh = elastic.mesh_from_plan(plan, device_type=dev.type)
+            target = train_state_specs(emodel, opt)
+            t0 = time.perf_counter()
+            state, _ = ckpt_lib.restore_checkpoint(
+                ckdir, 0, target,
+                shardings=sharding.param_shardings(mesh, target))
+            restore_s = time.perf_counter() - t0
+            reset()
+            state, m = on_mesh(estep, mesh)(state, batch)
+            no_launches(0, add_counts())
+            loss, gnorm = value(m["loss"]), value(m["gnorm"])
+            got = sharding.gather_tree(state["params"])
+            del state
+    # one bf16 step of each value (2^-8 of it), or of the smallest normal
+    room = [torch.clamp(w.detach().float().abs() * 2.0 ** -8,
+                        min=2.0 ** -126) for w in tree_lib.leaves(want)]
+    use = max(float(((g.detach().float() - w.detach().float()).abs() / r)
+                    .max())
+              for g, w, r in zip(tree_lib.leaves(got), tree_lib.leaves(want),
+                                 room))
+    bitwise = all(torch.equal(g, w) for g, w in zip(tree_lib.leaves(got),
+                                                    tree_lib.leaves(want)))
+    _phase("elastic", arch=TRAIN_ARCH, layers=MESH_ELASTIC_LAYERS,
+           old_shape=plan.old_shape, new_shape=plan.new_shape,
+           mesh_dims=list(mesh.mesh_dim_names), checkpoint_gb=ckpt_gb,
+           write_s=f"{write_s:.2f}", restore_s=f"{restore_s:.2f}",
+           loss=loss, loss_without_round_trip=want_loss,
+           gnorm_rel=abs(gnorm - want_gnorm) / abs(want_gnorm),
+           params_max_abs_gap=params_gap(got, want),
+           params_bf16_step_use=use, params_bitwise=bitwise)
+    del got, want
+    torch.cuda.empty_cache()
+    if loss != want_loss or abs(gnorm - want_gnorm) > 1e-5 * abs(
+            want_gnorm) or use > 1:
+        raise AssertionError(f"[elastic] after the round trip: loss {loss} "
+                             f"against {want_loss}, gnorm {gnorm} against "
+                             f"{want_gnorm}, parameters at {use:.3g} of a "
+                             f"bf16 step")
+
+    # ---- [collectives]: the int8 all-reduce, one pipeline stage -----------
+    gen = torch.Generator(dev).manual_seed(7)
+    with world():
+        x = torch.randn(MESH_ALLREDUCE_SHAPE, generator=gen, device=dev)
+        got = compression.compressed_allreduce(x)
+        xf = x.float()
+        scale = compression.int8_scale(xf.abs().amax(-1, keepdim=True))
+        want = (torch.clamp(torch.round(xf / scale), -127, 127)
+                .to(torch.int32).float() * scale)
+        if not torch.equal(got, want):
+            raise AssertionError("[collectives] compressed_allreduce on one "
+                                 "rank differs from quantize-dequantize")
+        ar_ms = time_ms(lambda: compression.compressed_allreduce(x))
+        pmesh = mesh_lib.make_mesh((1,), ("stage",), device_type=dev.type)
+        w = torch.randn((1, MESH_PIPE_WIDTH, MESH_PIPE_WIDTH), generator=gen,
+                        device=dev) / math.sqrt(MESH_PIPE_WIDTH)
+        h = torch.randn((MESH_PIPE_B, MESH_PIPE_WIDTH), generator=gen,
+                        device=dev)
+
+        def stage_fn(wi, hi):
+            return torch.tanh(hi @ wi)
+
+        piped = pipeline.pipeline_forward(pmesh, stage_fn, w, h, n_micro=4)
+        pipe_err = float((piped - stage_fn(w[0], h)).abs().max())
+        if not pipe_err <= TOL_MESH_PIPE:
+            raise AssertionError(f"[collectives] pipeline_forward: error "
+                                 f"{pipe_err:.3g}")
+    _phase("collectives", allreduce_shape=list(MESH_ALLREDUCE_SHAPE),
+           allreduce_bit_equal=True, allreduce_ms=ar_ms,
+           pipeline_stages=1, pipeline_micro=4,
+           pipeline_bubble=pipeline.bubble_fraction(1, 4),
+           pipeline_max_abs_err=pipe_err)
+
+    # ---- [serve_mesh]: serve_uncertain under the mesh ----------------------
+    scfg = registry.get_config(LM_ARCH, mask_samples=LM_MASKS,
+                               n_layers=MESH_SERVE_LAYERS)
+    smodel = lm_model.build_model(scfg)
+    sparams = smodel.init(torch.Generator(dev).manual_seed(0), device=dev)
+    prompts = torch.randint(0, scfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=torch.Generator(dev).manual_seed(1),
+                            device=dev)
+    serve_cfg = engine.ServeConfig(max_new_tokens=LM_NEW, fused=False)
+
+    def serve(mesh):
+        reset()
+        out = engine.serve_uncertain(smodel, sparams, prompts, serve_cfg,
+                                     mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        return out, add_counts(mesh is not None)
+
+    want, want_counts = serve(None)
+    with world():
+        got, got_counts = serve(mesh_2d())
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    _phase("serve_mesh", arch=LM_ARCH, layers=MESH_SERVE_LAYERS,
+           batch=LM_BATCH, prompt=LM_PROMPT, new=LM_NEW, fused=False,
+           tokens_equal=torch.equal(got[0], want[0]),
+           rel_unc_equal=torch.equal(got[1], want[1]), launches=got_counts,
+           launches_without_mesh=want_counts)
+    if not equal or got_counts != want_counts or not (
+            got_counts["flash_attention"] and got_counts["moments"]):
+        raise AssertionError(f"[serve_mesh] under the mesh: outputs equal "
+                             f"{equal}, launches {got_counts} against "
+                             f"{want_counts}")
+    del sparams
+    torch.cuda.empty_cache()
+    _phase("mesh_summary", seconds=f"{time.perf_counter() - t_phases:.1f}",
+           launches=totals, scan_backward_launches=backward_total)
+    return {"launches": totals, "backward_launches": backward_total}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3431,7 +3850,10 @@ def main() -> int:
     # ---- phases 13-17: LM training -----------------------------------------
     trained = train_phases(dev, time_ms, bound, lm_counters)
 
-    # ---- phase 18: the kernels line, then the device line -----------------
+    # ---- phases 18-22: the mesh layer --------------------------------------
+    meshed = mesh_phases(dev, time_ms, lm_counters)
+
+    # ---- phase 23: the kernels line, then the device line -----------------
     main_launches = {"masked_ffn": launches["per_op"][0],
                      "moments": launches["per_op"][3],
                      "fused_plan_samples": samples_launches,
@@ -3496,13 +3918,15 @@ def main() -> int:
                         for k in ("ms", "library_ms", "bound_ms",
                                   "device_ms", "library_device_ms",
                                   "max_abs_err")})
-    for rec in line:           # the training runs' launches beside each
+    for rec in line:    # the training and mesh runs' launches beside each
         rec["train_launches"] = trained["launches"].get(rec["name"], 0)
+        rec["mesh_launches"] = meshed["launches"].get(rec["name"], 0)
         if rec["name"] == "rglru_scan":
             bwd = trained["kernel"]
             main_bwd = bwd["train"]
             rec.update({
                 "train_backward_launches": trained["backward_launches"],
+                "mesh_backward_launches": meshed["backward_launches"],
                 "backward_ms": main_bwd["ms"],
                 "backward_plain_ms": main_bwd["plain_ms"],
                 "backward_bound_ms": main_bwd["bound_ms"],

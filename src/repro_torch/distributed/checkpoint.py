@@ -18,6 +18,13 @@ element (numpy's ``|V2``) with ``"dtype": "bfloat16"`` in the manifest,
 and come back bit for bit without ``ml_dtypes``. The manifest's
 ``treedef`` is the tree's structure as JSON (the reference writes JAX's
 serialized treedef there; neither restore reads it).
+
+On a mesh, the manifest records the logical (unsharded) arrays. Saving a
+tree of DTensors gathers each leaf's logical value (a collective: every
+rank calls :func:`save_checkpoint`); rank 0 alone writes, and every rank
+returns after a barrier, with the checkpoint committed. Restoring with
+``shardings=`` (a tree of ``sharding.NamedSharding``) lays each leaf out on
+its mesh: any mesh, a different one after an elastic remesh included.
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import tree as tree_lib
+from repro_torch.distributed import sharding as sharding_lib
 
 Params = Any
 
@@ -77,27 +86,50 @@ def _structure(tree):
     return None if tree is None else "*"
 
 
+def _writer() -> bool:
+    """True on the rank that writes: rank 0 of a process group, or the one
+    process outside any."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _logical(leaf) -> torch.Tensor:
+    """A leaf's whole value: a DTensor's gathered (a collective)."""
+    from torch.distributed.tensor import DTensor
+    return leaf.full_tensor() if isinstance(leaf, DTensor) \
+        else torch.as_tensor(leaf)
+
+
 def save_checkpoint(directory: str, step: int, tree: Params,
                     meta: dict | None = None) -> str:
-    """Atomically write ``tree`` at ``step``. Returns the committed path."""
+    """Atomically write ``tree`` at ``step``. Returns the committed path.
+    In a process group every rank calls it (DTensor leaves are gathered one
+    at a time); rank 0 writes, and all return after a barrier."""
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(os.path.join(tmp, "arrays"))
+    writer = _writer()
+    if writer:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(os.path.join(tmp, "arrays"))
     manifest = {"step": step, "meta": meta or {}, "leaves": [],
                 "treedef": json.dumps(_structure(tree))}
     for i, (name, leaf) in enumerate(_leaf_files(tree)):
-        arr, dtype = _to_numpy(torch.as_tensor(leaf))
+        value = _logical(leaf)
+        if not writer:
+            continue
+        arr, dtype = _to_numpy(value)
         fname = f"{i:04d}_{name[:80]}.npy"
         np.save(os.path.join(tmp, "arrays", fname), arr)
         manifest["leaves"].append({"file": fname, "shape": list(arr.shape),
                                    "dtype": dtype})
-    with open(os.path.join(tmp, _MANIFEST), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)          # commit point
+    if writer:
+        with open(os.path.join(tmp, _MANIFEST), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)          # commit point
+    if dist.is_initialized():
+        dist.barrier()
     return final
 
 
@@ -109,12 +141,17 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(directory: str, step: int, target: Params
+def restore_checkpoint(directory: str, step: int, target: Params,
+                       shardings: Params | None = None
                        ) -> tuple[Params, dict]:
     """Restore into the structure of ``target`` (a tree of tensors, real or
     on the ``meta`` device): each leaf in the target leaf's dtype, on its
-    device (a ``meta`` leaf restores to the CPU). Raises ``ValueError`` on
-    a leaf count or shape that does not match."""
+    device (a ``meta`` leaf restores to the CPU). With ``shardings`` (a
+    tree of ``sharding.NamedSharding`` shaped like ``target``), each leaf
+    becomes a DTensor laid out on its sharding's mesh, on that mesh's
+    device — the resharding path: the checkpoint may have been written
+    under another mesh, or none. Raises ``ValueError`` on a leaf count or
+    shape that does not match."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, _MANIFEST)) as f:
         manifest = json.load(f)
@@ -122,15 +159,22 @@ def restore_checkpoint(directory: str, step: int, target: Params
     if len(flat) != len(manifest["leaves"]):
         raise ValueError(f"checkpoint has {len(manifest['leaves'])} leaves, "
                          f"target has {len(flat)}")
+    shard_flat = (tree_lib.leaves(shardings) if shardings is not None
+                  else [None] * len(flat))
+    if len(shard_flat) != len(flat):
+        raise ValueError(f"shardings have {len(shard_flat)} leaves, target "
+                         f"has {len(flat)}")
     leaves = []
-    for spec, info in zip(flat, manifest["leaves"]):
+    for spec, info, shard in zip(flat, manifest["leaves"], shard_flat):
         arr = np.load(os.path.join(path, "arrays", info["file"]))
         if tuple(arr.shape) != tuple(spec.shape):
             raise ValueError(f"shape mismatch for {info['file']}: "
                              f"{arr.shape} vs {tuple(spec.shape)}")
-        dev = "cpu" if spec.device.type == "meta" else spec.device
-        leaves.append(_from_numpy(arr, info["dtype"]).to(device=dev,
-                                                         dtype=spec.dtype))
+        dev = (shard.mesh.device_type if shard is not None else
+               "cpu" if spec.device.type == "meta" else spec.device)
+        t = _from_numpy(arr, info["dtype"]).to(device=dev, dtype=spec.dtype)
+        leaves.append(t if shard is None else sharding_lib.distribute(t,
+                                                                      shard))
     return tree_lib.unflatten(target, leaves), manifest["meta"]
 
 
@@ -142,15 +186,18 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Params, meta: dict | None = None) -> str:
         path = save_checkpoint(self.directory, step, tree, meta)
-        self._gc()
+        if _writer():
+            self._gc()
         return path
 
-    def restore_latest(self, target: Params
+    def restore_latest(self, target: Params,
+                       shardings: Params | None = None
                        ) -> tuple[int, Params, dict] | None:
         step = latest_step(self.directory)
         if step is None:
             return None
-        tree, meta = restore_checkpoint(self.directory, step, target)
+        tree, meta = restore_checkpoint(self.directory, step, target,
+                                        shardings)
         return step, tree, meta
 
     def _gc(self) -> None:

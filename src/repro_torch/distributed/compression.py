@@ -6,8 +6,9 @@ transforms of the train step (``compress_tree``/``decompress_tree``,
 quantized per row, dequantized, and the quantization error carried into
 the next step, so the applied updates stay unbiased over steps. Leaves of
 fewer than two dims pass through raw (negligible bytes; quantizing them
-hurts); the 2-D Masksembles ``masks`` are quantized like any matrix. The
-compressed all-reduce comes with the port's distributed slice.
+hurts); the 2-D Masksembles ``masks`` are quantized like any matrix.
+:func:`compressed_allreduce` is the int8 all-reduce over a process group:
+the members agree on one per-row scale, and the sum runs over int32 words.
 
 The arithmetic is the reference's, step for step, so the int8 values are
 bit-equal on the same fp32 input, on the CPU and on the card: the scale is
@@ -21,13 +22,15 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import tree as tree_lib
 
 Params = Any
 
 __all__ = ["int8_scale", "quantize_int8", "dequantize_int8",
-           "compress_tree", "decompress_tree", "ef_init", "ef_update"]
+           "compress_tree", "decompress_tree", "ef_init", "ef_update",
+           "compressed_allreduce"]
 
 
 def int8_scale(amax: torch.Tensor) -> torch.Tensor:
@@ -101,3 +104,23 @@ def ef_update(grads: Params, residual: Params) -> tuple[Params, Params]:
         res.append(corrected - d)
     return (tree_lib.unflatten(grads, deq),
             tree_lib.unflatten(residual, res))
+
+
+def compressed_allreduce(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The int8-quantized sum of ``x`` [..., d] over ``group`` (a process
+    group; None is the default one), every member's fp32 result the same.
+
+    The members first agree on one per-row scale (a MAX all-reduce of
+    their local amax: a scalar a row), quantize onto that shared grid
+    (a true division, round half to even, clip to ±127), and the
+    reduction itself runs over **int32** words, dequantized once. The
+    int32 sum is exact for groups of up to ``2^24 / 127`` members; the
+    arithmetic is the reference's, so the result is bit-equal to its
+    ``shard_map`` form on the same inputs."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = int8_scale(amax)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int32)
+    dist.all_reduce(q, op=dist.ReduceOp.SUM, group=group)
+    return q.float() * scale

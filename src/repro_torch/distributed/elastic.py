@@ -14,15 +14,19 @@ The planner is pure logic. It favors keeping the "model" axis intact
 (tensor-parallel groups must stay within one fast interconnect domain) and
 shrinking "data"/"pod" first (a data-parallel shrink only costs
 throughput; a model-axis shrink changes the layout of every weight).
-Materializing the planned mesh (``mesh_from_plan``) comes with the port's
-``DeviceMesh`` layer.
+:func:`mesh_from_plan` materializes the planned mesh as a ``DeviceMesh``
+(step 3: the trainer then recomputes its shardings and restores the latest
+checkpoint onto them, ``checkpoint.restore_checkpoint(shardings=)``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["RemeshPlan", "plan_remesh", "grad_accum_for_batch"]
+from repro_torch.launch import mesh as mesh_lib
+
+__all__ = ["RemeshPlan", "plan_remesh", "mesh_from_plan",
+           "grad_accum_for_batch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +80,15 @@ def plan_remesh(old_shape: dict[str, int], n_alive: int) -> RemeshPlan:
         note=("model axis preserved; DP shrunk" if m == model else
               "model axis shrunk — full reshard via checkpoint restore"),
     )
+
+
+def mesh_from_plan(plan: RemeshPlan, *, device_type: str | None = None):
+    """The planned mesh (``launch.mesh.make_mesh``, ``device_type`` None
+    -> the card), its dims in the old mesh's order. The world must hold
+    ``plan.new_size`` ranks: the survivors' new process group."""
+    names = tuple(plan.new_shape)
+    shape = tuple(plan.new_shape[n] for n in names)
+    return mesh_lib.make_mesh(shape, names, device_type=device_type)
 
 
 def _largest_pow2(n: int) -> int:

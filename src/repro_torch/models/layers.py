@@ -21,16 +21,93 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import masks as masks_lib
 from repro_torch.core import plan as plan_lib
-from repro_torch.distributed import compression
+from repro_torch.distributed import compression, sharding
+from repro_torch.launch import mesh as mesh_lib
 
 Params = dict[str, Any]
 
-__all__ = ["dense_init", "dense", "norm_init", "norm_apply", "rope_cos_sin",
-           "mrope_cos_sin", "apply_rope", "attn_init", "attention_full", "attention_chunked",
+__all__ = ["resolve_spec", "constrain", "local_pointwise", "gather_dim",
+           "axis_size", "dense_init", "dense", "norm_init", "norm_apply",
+           "rope_cos_sin", "mrope_cos_sin", "apply_rope", "attn_init", "attention_full", "attention_chunked",
            "attention_banded", "attention_decode", "kv_store_dtype",
            "quantize_kv", "kv_cache_shapes", "init_kv_cache",
            "kv_cache_update", "ffn_init", "ffn_apply", "mask_table",
            "embed_init", "embed_tokens", "lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# activation sharding hints
+# ---------------------------------------------------------------------------
+
+
+def resolve_spec(spec: tuple, shape: tuple, mesh_shape: dict) -> tuple:
+    """A hint's spec against a mesh's ``{name: size}``: "batch" -> ("pod",
+    "data") as available (one name alone), a mesh dim name kept, None
+    kept; an entry whose axes are absent or do not divide the dim becomes
+    None (the reference's resolution, ``constrain``)."""
+    resolved: list = []
+    for i, a in enumerate(spec):
+        if a == "batch":
+            ba = tuple(ax for ax in ("pod", "data") if ax in mesh_shape)
+            tot = 1
+            for ax in ba:
+                tot *= mesh_shape[ax]
+            resolved.append((ba if len(ba) > 1 else ba[0])
+                            if ba and shape[i] % tot == 0 else None)
+        elif a in mesh_shape and shape[i] % mesh_shape[a] == 0:
+            resolved.append(a)
+        else:
+            resolved.append(None)
+    return tuple(resolved)
+
+
+def constrain(x: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """``x`` laid out as ``spec`` says (:func:`resolve_spec` against the
+    ambient mesh): a DTensor is redistributed (differentiably); a plain
+    tensor, no ambient mesh, or a spec that resolves to no axis at all
+    leave ``x`` as it is — the reference with no mesh."""
+    from torch.distributed.tensor import DTensor
+    mesh = mesh_lib.get_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    resolved = resolve_spec(spec, tuple(x.shape), mesh_lib.mesh_shape(mesh))
+    if all(r is None for r in resolved):
+        return x
+    return x.redistribute(x.device_mesh,
+                          sharding.to_placements(resolved, x.device_mesh))
+
+
+def local_pointwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an elementwise ``fn``; on a DTensor, ``fn`` runs on
+    each rank's local shard (a partial sum reduced first), for the
+    elementwise ops DTensor has no sharding rule for (``log_sigmoid``'s
+    backward)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return fn(x)
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(Replicate() if d.is_partial() else d for d in x.placements)
+    x = x.redistribute(x.device_mesh, pl)
+    return local_map(fn, out_placements=(pl,), in_placements=(pl,),
+                     device_mesh=x.device_mesh)(x)
+
+
+def gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with ``dim`` whole on every rank: a DTensor sharded over
+    ``dim`` is gathered along it (DTensor cannot slice a sharded dim);
+    anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or not any(
+            d.is_shard(dim) for d in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if d.is_shard(dim) else d for d in x.placements))
+
+
+def axis_size(name: str) -> int:
+    """Size of a dim of the ambient mesh (1 if absent, or no mesh)."""
+    mesh = mesh_lib.get_mesh()
+    return 1 if mesh is None else mesh_lib.mesh_shape(mesh).get(name, 1)
 
 
 def _randn(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
@@ -224,6 +301,7 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sq = q.shape[2]
     if sq % chunk:
         return attention_full(q, k, v, causal=causal, scores_f32=scores_f32)
+    q = gather_dim(q, 2)        # the query chunks are slices of S
     outs = [_chunk_body(lambda qi, kk, vv, i=i: attention_full(
                 qi, kk, vv, causal=causal, q_offset=i,
                 scores_f32=scores_f32), q[:, :, i:i + chunk], k, v)
@@ -240,6 +318,7 @@ def attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     w = window
     if sq <= w or sq % w:
         return attention_full(q, k, v, causal=True, window=w)
+    q, k, v = (gather_dim(t, 2) for t in (q, k, v))   # bands slice S
     pad = (0, 0, w, 0)
     kp = torch.nn.functional.pad(k, pad)
     vp = torch.nn.functional.pad(v, pad)

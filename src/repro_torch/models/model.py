@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import tree as tree_lib
-from repro_torch.models import transformer
+from repro_torch.models import layers, transformer
 
 Params = dict[str, Any]
 
@@ -78,6 +78,9 @@ class Model:
         ``MOE_AUX_WEIGHT`` * aux, {"ce", "moe_aux"}), through
         ``transformer.forward_train``."""
         logits, aux = transformer.forward_train(self.cfg, params, batch)
+        # DTensor's pick of the label's logit along a vocab-sharded dim
+        # leaves a mask it cannot reduce: gather the vocab dim first
+        logits = layers.constrain(logits, ("batch", None, None))
         ce = cross_entropy(logits, batch["labels"].to(logits.device))
         total = ce + MOE_AUX_WEIGHT * aux
         return total, {"ce": ce, "moe_aux": aux}

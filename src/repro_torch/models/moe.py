@@ -113,11 +113,18 @@ def moe_apply(p: Params, x: torch.Tensor, cfg,
     combine = (gate[..., None] * slot_oh).sum(2)                # fp32
 
     # ---- dispatch -> expert FFN -> combine --------------------------------
+    # Expert-parallel activation layout (the reference's hints; identity
+    # without a mesh): slot tensors shard the expert dim over "model" and
+    # the group dim over the batch axes — unless the groups nest inside
+    # sequence shards (moe_local_groups).
+    ep = None if cfg.moe_local_groups else ("batch", "model", None, None)
     xe = torch.einsum("gtec,gtd->gecd", dispatch, xt)           # [G,E,C,D]
+    xe = layers.constrain(xe, ep) if ep else xe
     act = plan_lib.activation_fn("silu" if cfg.activation == "silu"
                                  else "gelu")
     h = act(torch.einsum("gecd,edf->gecf", xe, p["weg"])) * \
         torch.einsum("gecd,edf->gecf", xe, p["weu"])            # [G,E,C,F]
+    h = layers.constrain(h, ep) if ep else h
     if mask_ids is not None and "masks" in p:
         # route each token's mask id through the same dispatch
         mid = mask_ids.to(x.dtype)
@@ -130,6 +137,7 @@ def moe_apply(p: Params, x: torch.Tensor, cfg,
             slot_mid.long(), p["masks"].shape[0]).to(p["masks"].dtype)
         h = h * (pick @ p["masks"])                             # [G,E,C,F]
     ye = torch.einsum("gecf,efd->gecd", h, p["wed"])            # [G,E,C,D]
+    ye = layers.constrain(ye, ep) if ep else ye
     y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ye)
 
     # ---- aux load-balancing loss -------------------------------------------

@@ -57,10 +57,13 @@ def rglru_init(gen: torch.Generator, width: int, dtype) -> Params:
             "lambda": torch.log(a / (1 - a)).float()}
 
 
-def _gates(p: Params, x: torch.Tensor):
-    r = torch.sigmoid(layers.dense(p["wa"], x).float())
-    i = torch.sigmoid(layers.dense(p["wx"], x).float())
-    log_a_base = F.logsigmoid(p["lambda"])              # log a  (< 0)
+def _gate_math(za: torch.Tensor, zx: torch.Tensor, x: torch.Tensor,
+               lam: torch.Tensor):
+    """The gates from the two projections (elementwise over [B, S, W],
+    ``lambda`` broadcast over W) -> (a, b) fp32."""
+    r = torch.sigmoid(za.float())
+    i = torch.sigmoid(zx.float())
+    log_a_base = F.logsigmoid(lam)                      # log a  (< 0)
     log_a = _C * r * log_a_base                         # a_t = a^(c r_t)
     a = torch.exp(log_a)
     gated_x = i * x.float()
@@ -68,13 +71,60 @@ def _gates(p: Params, x: torch.Tensor):
     return a, b
 
 
+def _gates(p: Params, x: torch.Tensor):
+    return _gate_math(layers.dense(p["wa"], x), layers.dense(p["wx"], x), x,
+                      p["lambda"])
+
+
+def _gate_scan(za, zx, x, lam) -> torch.Tensor:
+    a, b = _gate_math(za, zx, x, lam)
+    return scan_ops.RGLRUScan.apply(a, b)
+
+
+def _on_local_shards(fn, za, zx, x, lam) -> torch.Tensor:
+    """``fn(za, zx, x, lam)`` -> h [B, S, W]; on DTensors, run on each
+    rank's local shard (``local_map``): the gates and the scan are
+    independent across batch and width, so a [B, S, W] layout sharded over
+    B and W needs no collective, and on the card each rank's shard is one
+    kernel launch. ``lambda`` follows W's shards; its gradient is partial
+    over the mesh dims that shard B. A sequence shard raises
+    ``ValueError`` (the recurrence crosses it); otherwise, under an
+    ambient mesh, the operands take the layout B over the batch axes and W
+    over "model" (a hint, as ``layers.constrain``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return fn(za, zx, x, lam)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    if any(d.is_shard(1) for d in x.placements):
+        raise ValueError(f"rglru_scan: the sequence dim of x {x.placements} "
+                         f"is sharded; the recurrence runs over the whole "
+                         f"sequence on one rank")
+    # DTensor's propagation may leave B sharded over "model" as well:
+    # state the scan's layout; a partial sum is reduced first, and the
+    # operands share x's layout
+    x = layers.constrain(x, ("batch", None, "model"))
+    pl = tuple(Replicate() if d.is_partial() else d for d in x.placements)
+    za, zx, x = (t.redistribute(mesh, pl) for t in (za, zx, x))
+    lam_pl = tuple(Shard(0) if d.is_shard(2) else Replicate() for d in pl)
+    lam = lam.redistribute(mesh, lam_pl)
+    lam_grad = tuple(Shard(0) if d.is_shard(2) else
+                     Partial() if d.is_shard(0) else Replicate()
+                     for d in pl)
+    return local_map(fn, out_placements=(pl,),
+                     in_placements=(pl, pl, pl, lam_pl),
+                     in_grad_placements=(pl, pl, pl, lam_grad),
+                     device_mesh=mesh)(za, zx, x, lam)
+
+
 def rglru_scan(p: Params, x: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Prefill and training: x [B, S, W] -> (y [B, S, W] in x's dtype,
     final state [B, W] fp32); the recurrence is one ``rglru_scan`` launch
-    on the card, and its gradient one backward launch."""
-    a, b = _gates(p, x)                                 # [B, S, W] fp32
-    hh = scan_ops.RGLRUScan.apply(a, b)
+    on the card, and its gradient one backward launch (on DTensors: one
+    each a rank, on its local shard)."""
+    hh = _on_local_shards(_gate_scan, layers.dense(p["wa"], x),
+                          layers.dense(p["wx"], x), x, p["lambda"])
     return hh.to(x.dtype), hh[:, -1]
 
 

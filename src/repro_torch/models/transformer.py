@@ -331,6 +331,24 @@ def _attention_sublayer(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
     cos, sin = rope
     q = layers.apply_rope(q, cos, sin, cfg.rope_pct)
     k = layers.apply_rope(k, cos, sin, cfg.rope_pct)
+    # The reference's activation-sharding policy (identity without a
+    # mesh): sequence-sharded queries and gathered K/V under seq_shard;
+    # else head-TP when both head counts divide the model axis; else the
+    # KV sequence over "model".
+    if mode != "decode":
+        msize = layers.axis_size("model")
+        if cfg.seq_shard:
+            q = layers.constrain(q, ("batch", None, "model", None))
+            k = layers.constrain(k, ("batch", None, None, None))
+            v = layers.constrain(v, ("batch", None, None, None))
+        elif h % msize == 0 and hkv % msize == 0:
+            q = layers.constrain(q, ("batch", "model", None, None))
+            k = layers.constrain(k, ("batch", "model", None, None))
+            v = layers.constrain(v, ("batch", "model", None, None))
+        else:
+            q = layers.constrain(q, ("batch", None, None, None))
+            k = layers.constrain(k, ("batch", None, "model", None))
+            v = layers.constrain(v, ("batch", None, "model", None))
     window = cfg.local_window if kind == "local_attn" else 0
     new_cache = None
     if mode == "decode":
@@ -429,14 +447,27 @@ def _block_apply(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         if mode in _NO_CACHE:
             new_cache = None
     elif kind in ("attn", "local_attn", "moe"):
+        # the residual stream sequence-sharded under seq_shard (a hint)
+        seqp = (("batch", "model", None)
+                if cfg.seq_shard and mode != "decode" else None)
         x, new_cache = _attention_sublayer(cfg, p, x, rope, mode, kind,
                                            cache, pos)
+        if seqp:
+            x = layers.constrain(x, seqp)
+        xn = layers.norm_apply(p["norm2"], x, cfg.norm)
+        if kind == "moe":
+            if seqp and not cfg.moe_local_groups:
+                # MoE groups cross the sequence shards: route over full S
+                xn = layers.constrain(xn, ("batch", None, None))
+            y, aux = moe_lib.moe_apply(p["moe"], xn, cfg, mask_ids=mask_ids)
+        else:
+            y = layers.ffn_apply(p["ffn"], xn, cfg, mask_ids=mask_ids)
+            aux = None
+        out = x + y
+        return (layers.constrain(out, seqp) if seqp else out), new_cache, aux
     else:
         raise ValueError(kind)
     xn = layers.norm_apply(p["norm2"], x, cfg.norm)
-    if kind == "moe":
-        y, aux = moe_lib.moe_apply(p["moe"], xn, cfg, mask_ids=mask_ids)
-        return x + y, new_cache, aux
     return x + layers.ffn_apply(p["ffn"], xn, cfg, mask_ids=mask_ids), \
         new_cache, None
 
@@ -553,8 +584,14 @@ def _mask_ids(cfg: ModelConfig, b: int, mask_ids, device):
 def _embed_in(cfg: ModelConfig, params: Params, batch: Params
               ) -> torch.Tensor:
     if "embeds" in batch:
-        return batch["embeds"].to(cfg.dtype)
-    return layers.embed_tokens(params["embed"], batch["tokens"])
+        x = batch["embeds"].to(cfg.dtype)
+    else:
+        x = layers.embed_tokens(params["embed"], batch["tokens"])
+    # residual stream: batch-sharded; sequence-sharded over "model" too
+    # under sequence parallelism
+    if cfg.seq_shard:
+        return layers.constrain(x, ("batch", "model", None))
+    return layers.constrain(x, ("batch", None, None))
 
 
 def _positions(cfg: ModelConfig, batch: Params, seq: int, device
@@ -607,6 +644,8 @@ def forward_train(cfg: ModelConfig, params: Params, batch: Params,
     rope = _rope(cfg, _positions(cfg, batch, s, dev))
     x, _, aux = _run_stack(cfg, params, x, mode="train", rope=rope,
                            mask_ids=mask_ids)
+    if cfg.seq_shard:       # one gather of the final hidden state (a hint)
+        x = layers.constrain(x, ("batch", None, None))
     x = layers.norm_apply(params["final_norm"], x, cfg.norm)
     return layers.lm_head(params["embed"], x), aux
 

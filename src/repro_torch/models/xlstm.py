@@ -64,7 +64,8 @@ def _mlstm_chunk(q, k, v, igate, fgate, carry, *, eps=1e-6):
     (the F_j terms cancel inside D — only the cummax survives).
     """
     c_state, n_state, m_state = carry
-    lf = F.logsigmoid(fgate.float())                             # [B,H,C]
+    # DTensor has no rule for log_sigmoid's backward: the local shards
+    lf = layers.local_pointwise(F.logsigmoid, fgate.float())     # [B,H,C]
     fc = torch.cumsum(lf, -1)
     a = igate.float() - fc                                       # [B,H,C]
     g = torch.cummax(a, 2).values
@@ -282,7 +283,8 @@ def _slstm_cell(p: Params, pre_x: torch.Tensor, state: Params, cfg):
     rec = torch.einsum("bhd,hde->bhe", hp, p["rzifo"]).reshape(b, 4 * d)
     pre = (pre_x + rec).float()
     z, i, f, o = torch.split(pre, d, -1)
-    lf = F.logsigmoid(f)
+    # DTensor has no rule for log_sigmoid's backward: the local shards
+    lf = layers.local_pointwise(F.logsigmoid, f)
     m_new = torch.maximum(lf + state["m"], i)
     iw = torch.exp(i - m_new)
     fw = torch.exp(lf + state["m"] - m_new)

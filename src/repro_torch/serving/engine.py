@@ -194,21 +194,25 @@ class ServeConfig:
 
 @torch.no_grad()
 def generate(model, params: Params, tokens: torch.Tensor,
-             cfg: ServeConfig = ServeConfig(), *,
+             cfg: ServeConfig = ServeConfig(), *, mesh=None,
              device: torch.device | str | None = None) -> torch.Tensor:
     """Greedy generation: tokens [B, S] -> [B, S + max_new_tokens] (int32)
-    on ``device`` (None -> the card), where ``params`` must live."""
+    on ``device`` (None -> the card), where ``params`` must live (plain
+    tensors, under ``mesh`` too: ``server.check_plain_params``)."""
+    server_lib.check_plain_params(params, "generate")
     dev = device_lib.resolve(device)
     tokens = torch.as_tensor(tokens, device=dev).to(torch.int32)
     s = tokens.shape[1]
     fns = server_lib.step_fns(model, expand_masks=False, fused=cfg.fused,
                               device=dev)
-    mean, _, cache = fns.prefill(params, tokens,
-                                 max_seq=s + cfg.max_new_tokens)
-    out = [mean.argmax(-1).to(torch.int32)]
-    for i in range(cfg.max_new_tokens - 1):
-        mean, _, cache = fns.decode(params, cache, out[-1][:, None], s + i)
-        out.append(mean.argmax(-1).to(torch.int32))
+    with server_lib.mesh_scope(mesh):
+        mean, _, cache = fns.prefill(params, tokens,
+                                     max_seq=s + cfg.max_new_tokens)
+        out = [mean.argmax(-1).to(torch.int32)]
+        for i in range(cfg.max_new_tokens - 1):
+            mean, _, cache = fns.decode(params, cache, out[-1][:, None],
+                                        s + i)
+            out.append(mean.argmax(-1).to(torch.int32))
     return torch.cat([tokens, torch.stack(out, 1)], 1)
 
 
@@ -237,10 +241,11 @@ def uncertainty_decode_step(model, params: Params, caches,
 
 @torch.no_grad()
 def serve_uncertain(model, params: Params, tokens: torch.Tensor,
-                    cfg: ServeConfig = ServeConfig(), *,
+                    cfg: ServeConfig = ServeConfig(), *, mesh=None,
                     device: torch.device | str | None = None):
     """Bayesian generation with per-token uncertainty, on ``device`` (None
-    -> the card), where ``params`` must live.
+    -> the card), where ``params`` must live (plain tensors, under
+    ``mesh`` too: ``server.check_plain_params``).
 
     Returns (generated [B, S+T] int32, rel_uncertainty [B, T],
     flags [B, T]). The request batch is expanded x N once (prefill
@@ -248,6 +253,7 @@ def serve_uncertain(model, params: Params, tokens: torch.Tensor,
     """
     if not model.cfg.bayesian:
         raise ValueError("serve_uncertain requires mask_samples > 0")
+    server_lib.check_plain_params(params, "serve_uncertain")
     dev = device_lib.resolve(device)
     n = model.cfg.mask_samples
     tokens = torch.as_tensor(tokens, device=dev).to(torch.int32)
@@ -258,15 +264,17 @@ def serve_uncertain(model, params: Params, tokens: torch.Tensor,
     # it produced, i.e. the NEXT emitted token: token i pairs with the
     # uncertainty of the step that chose it (prefill for token 0), and the
     # last decode's (an un-emitted token) is dropped.
-    mean, unc_next, caches = fns.prefill(params, _expand_for_masks(tokens, n),
-                                         max_seq=s + cfg.max_new_tokens)
-    cur = mean.argmax(-1).to(torch.int32)
-    for i in range(cfg.max_new_tokens):
-        outs.append(cur)
-        uncs.append(unc_next)
-        mean, unc_next, caches = fns.decode(
-            params, caches, _expand_for_masks(cur, n)[:, None], s + i)
+    with server_lib.mesh_scope(mesh):
+        mean, unc_next, caches = fns.prefill(
+            params, _expand_for_masks(tokens, n),
+            max_seq=s + cfg.max_new_tokens)
         cur = mean.argmax(-1).to(torch.int32)
+        for i in range(cfg.max_new_tokens):
+            outs.append(cur)
+            uncs.append(unc_next)
+            mean, unc_next, caches = fns.decode(
+                params, caches, _expand_for_masks(cur, n)[:, None], s + i)
+            cur = mean.argmax(-1).to(torch.int32)
     gen = torch.cat([tokens, torch.stack(outs, 1)], 1)
     unc = torch.stack(uncs, 1)
     return gen, unc, unc > cfg.uncertainty_threshold

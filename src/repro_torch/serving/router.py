@@ -39,8 +39,10 @@ smoke run replay identical scenarios.
 
 Hosts. Every host is a ``BayesianLMServer`` on ``device`` in this process
 (on one card they share the weights and the cached steps; each holds its
-own pool). A multi-device mesh per host comes with the port's
-``DeviceMesh`` layer.
+own pool), each under the router's ``mesh`` (a ``DeviceMesh``, or None).
+``RouterConfig.mesh_shape`` is the chip mesh the remesh planner works on
+("pod" is the host axis; each host holds the product of the other axes'
+extents in chips).
 
 Determinism. Pool rows are computed batch-independently (see
 serving/server.py), so a request's tokens do not depend on which host —
@@ -109,6 +111,9 @@ class RouterConfig:
     straggler_factor: float = 3.0     # persistent straggling escalates to
     straggler_patience: int = 3       # drain + remesh
     straggler_min_samples: int = 5
+    mesh_shape: dict | None = None    # chip mesh; None = {"pod": n_hosts,
+                                      # "data": 1, "model": 1} ("pod" is
+                                      # the host axis)
     trace: bool = False               # enable the process tracer
 
     def __post_init__(self) -> None:
@@ -121,6 +126,12 @@ class RouterConfig:
             raise ValueError(
                 f"max_retries {self.max_retries} must be >= 0 and "
                 f"backoff_steps {self.backoff_steps} >= 1")
+        if self.mesh_shape is not None and \
+                self.mesh_shape.get("pod", 1) != self.n_hosts:
+            raise ValueError(
+                f"mesh_shape {self.mesh_shape} has pod axis "
+                f"{self.mesh_shape.get('pod', 1)} != n_hosts "
+                f"{self.n_hosts} (pod is the host axis)")
 
 
 @dataclasses.dataclass
@@ -237,7 +248,7 @@ class ServingRouter:
     host or a straggler."""
 
     def __init__(self, model, params, cfg: ServerConfig = ServerConfig(),
-                 rcfg: RouterConfig = RouterConfig(), *,
+                 rcfg: RouterConfig = RouterConfig(), *, mesh=None,
                  device: torch.device | str | None = None,
                  faults: FaultPlan | None = None,
                  clock: Callable[[], float] | None = None,
@@ -249,12 +260,17 @@ class ServingRouter:
         self._tracer = obs_trace.TRACER if tracer is None else tracer
         if rcfg.trace:
             self._tracer.enable()
-        # every host is one single-device server: "pod" is the host axis
-        self._mesh_shape = {"pod": rcfg.n_hosts, "data": 1, "model": 1}
+        shape = dict(rcfg.mesh_shape) if rcfg.mesh_shape is not None else \
+            {"pod": rcfg.n_hosts, "data": 1, "model": 1}
+        self._mesh_shape = shape
+        self._chips_per_host = 1
+        for name, extent in shape.items():
+            if name != "pod":
+                self._chips_per_host *= int(extent)
         now = self._clock()
         self.hosts = [
             _Host(index=i,
-                  server=BayesianLMServer(model, params, cfg,
+                  server=BayesianLMServer(model, params, cfg, mesh=mesh,
                                           device=self.device, clock=clock,
                                           tracer=tracer),
                   monitor=StragglerMonitor(
@@ -588,8 +604,9 @@ class ServingRouter:
         beyond the planned pod extent drain out."""
         active = [h for h in self.hosts if h.accepting]
         try:
-            plan = elastic.plan_remesh(self._mesh_shape,
-                                       n_alive=len(active))
+            plan = elastic.plan_remesh(
+                self._mesh_shape,
+                n_alive=len(active) * self._chips_per_host)
         except ValueError as e:
             self._tracer.event("remesh_failed", reason=reason,
                                error=str(e))

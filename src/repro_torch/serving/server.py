@@ -39,6 +39,7 @@ collector's, default ``obs.trace.default_clock``).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import heapq
@@ -51,7 +52,9 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import scheduler as scheduler_lib
+from repro_torch.core import tree as tree_lib
 from repro_torch.core import uncertainty as unc_lib
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer
 from repro_torch.obs import profile as obs_profile
 from repro_torch.obs import registry as obs_registry
@@ -60,9 +63,30 @@ from repro_torch.serving.metrics import MetricsCollector, ServingSummary
 
 Params = dict[str, Any]
 
-__all__ = ["posterior", "StepFns", "step_fns", "fallback_counts",
-           "QueueFullError", "Request", "VoxelScanRequest", "WorkItem",
-           "RequestState", "ServerConfig", "BayesianLMServer"]
+__all__ = ["mesh_scope", "check_plain_params", "posterior", "StepFns",
+           "step_fns", "fallback_counts", "QueueFullError", "Request",
+           "VoxelScanRequest", "WorkItem", "RequestState", "ServerConfig",
+           "BayesianLMServer"]
+
+
+def mesh_scope(mesh):
+    """The serving math under ``mesh`` as the ambient mesh
+    (``launch.mesh.use_mesh``); a null context for None."""
+    return (mesh_lib.use_mesh(mesh) if mesh is not None
+            else contextlib.nullcontext())
+
+
+def check_plain_params(params: Params, entry: str) -> None:
+    """Serving takes plain (replicated) tensors, under a mesh too: the
+    decode kernels take local tensors. A DTensor leaf raises
+    ``ValueError`` naming ``entry``."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tree_lib.leaves(params)):
+        raise ValueError(
+            f"{entry}: params hold DTensors; serving takes plain tensors "
+            f"(replicated on every rank) under a mesh — sharded serving "
+            f"is not ported")
+
 
 #: Demotions of the fused decode step to the per-op path, keyed by
 #: ``(stage, key)``: stage "build" (no fused lowering for the config) or
@@ -455,12 +479,14 @@ class BayesianLMServer:
     """
 
     def __init__(self, model, params: Params,
-                 cfg: ServerConfig = ServerConfig(), *,
+                 cfg: ServerConfig = ServerConfig(), *, mesh=None,
                  device: torch.device | str | None = None,
                  clock: Callable[[], float] | None = None,
                  tracer: obs_trace.Tracer | None = None) -> None:
         if not model.cfg.bayesian:
             raise ValueError("BayesianLMServer requires mask_samples > 0")
+        check_plain_params(params, "BayesianLMServer")
+        self.mesh = mesh
         self.device = device_lib.resolve(device)
         # The cached step closures are process-global, so the default
         # tracer is the process TRACER; cfg.trace=True switches it on.
@@ -654,11 +680,12 @@ class BayesianLMServer:
             xt = torch.tensor(ctx, dtype=torch.int32,     # preempt
                               device=self.device)[None] \
                 .repeat(self.schedule.n_masks, 1)
-            mean, rel, fresh = self.steps.prefill(
-                self.params, xt, max_seq=self.cfg.max_seq)
-            self._caches = transformer.cache_scatter_rows(
-                self._caches, fresh,
-                self.schedule.rows_for_slot(slot, device=self.device))
+            with mesh_scope(self.mesh):
+                mean, rel, fresh = self.steps.prefill(
+                    self.params, xt, max_seq=self.cfg.max_seq)
+                self._caches = transformer.cache_scatter_rows(
+                    self._caches, fresh,
+                    self.schedule.rows_for_slot(slot, device=self.device))
             st.pending = int(mean[0].argmax())
             st.pending_unc = float(rel[0])
             st.status, st.slot = "running", slot
@@ -745,8 +772,9 @@ class BayesianLMServer:
                     self._tracer.event("decode", rows=self.schedule.rows,
                                        slots=len(lm),
                                        fused=self.steps.fused_live())
-                mean, rel, self._caches = self.steps.decode(
-                    self.params, self._caches, rows_tok, rows_pos)
+                with mesh_scope(self.mesh):
+                    mean, rel, self._caches = self.steps.decode(
+                        self.params, self._caches, rows_tok, rows_pos)
                 nxt = mean.argmax(-1).cpu().numpy()
                 rel = rel.float().cpu().numpy()
                 for slot, rid in lm:
@@ -768,7 +796,8 @@ class BayesianLMServer:
         if hi - lo < req.chunk:
             pad = xc.new_zeros((req.chunk - (hi - lo),) + tuple(xc.shape[1:]))
             xc = torch.cat([xc, pad])
-        mean, std = req.runner(xc)
+        with mesh_scope(self.mesh):
+            mean, std = req.runner(xc)
         # Chunk-level uncertainty signal for the shared escalation policy:
         # the worst per-voxel relative uncertainty (max over valid voxels
         # and output columns) — "any voxel uncertain => flag the chunk".

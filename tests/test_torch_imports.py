@@ -44,7 +44,9 @@ def test_port_imports_no_jax_and_no_reference():
         "          'serving.router', 'serving.faults',\n"
         "          'distributed.straggler', 'distributed.elastic',\n"
         "          'obs.crosscheck', 'data.pipeline', 'optim.optimizers',\n"
-        "          'train.trainer', 'distributed.checkpoint', 'core.tree'):\n"
+        "          'train.trainer', 'distributed.checkpoint', 'core.tree',\n"
+        "          'distributed.sharding', 'distributed.pipeline',\n"
+        "          'launch', 'launch.mesh'):\n"
         "    assert 'repro_torch.' + n in names, names\n"
         "assert len(names) >= 60, names\n"
         "print(len(names))\n")
