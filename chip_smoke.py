@@ -224,7 +224,11 @@ Phases, each on its own line; any failure raises and exits nonzero:
      trip; ``[collectives]`` ``compressed_allreduce`` bit-equal to the
      plain quantize-dequantize, a 1-stage ``pipeline_forward`` against
      ``stage_fn``; ``[serve_mesh]`` ``serve_uncertain(mesh=)`` bit-equal to
-     ``mesh=None`` with the same launches;
+     ``mesh=None`` with the same launches; ``[serve_sharded]`` qwen2-1.5b
+     at all 28 layers with DTensor parameters (``param_shardings``) and
+     caches (``cache_shardings``) against plain tensors: per-op and fused
+     ``serve_uncertain`` and one wave of the server's traffic, launches
+     equal, ms a step of each, the fused step's gathered bytes;
  23. one JSON line with every kernel's numbers (the server's and the
      router's launches as ``server_launches``, ``router_launches`` and
      ``router_faulted_launches``, the backbone phases' as
@@ -3446,9 +3450,136 @@ def mesh_phases(dev, time_ms, counters) -> dict:
                              f"{want_counts}")
     del sparams
     torch.cuda.empty_cache()
+    serve_sharded_phase(dev, reset, add_counts, world, mesh_2d)
     _phase("mesh_summary", seconds=f"{time.perf_counter() - t_phases:.1f}",
            launches=totals, scan_backward_launches=backward_total)
     return {"launches": totals, "backward_launches": backward_total}
+
+
+def serve_sharded_phase(dev, reset, add_counts, world, mesh_2d) -> None:
+    """``[serve_sharded]``: qwen2-1.5b at published widths and all its
+    layers (bf16, N = 4, weights from seed 0) with parameters laid out by
+    ``param_shardings`` as DTensors on the (1, 1) mesh and caches by
+    ``cache_shardings``, against the same runs on plain tensors: per-op
+    ``serve_uncertain``, fused ``serve_uncertain`` (each parameter taken
+    whole once) and one wave of the server's traffic through
+    ``BayesianLMServer(mesh=)`` per-op. Every placement on a mesh of one
+    device is ``Replicate``, so the per-op legs must be bit-equal; the
+    fused kernel sums partial products in fp32 atomics, whose order varies
+    from run to run, so its leg holds tokens equal and rel-unc to
+    ``TOL_LM_UNC`` and prints whether the bits agreed (and whether two
+    plain runs do). The launches of ``flash_attention``, ``moments`` and
+    ``fused_decode`` must equal the plain runs' and be non-zero where the
+    leg runs the kernel. Prints ms a step of each leg (a decode step of
+    the batch, prefill included; the server's engine steps), the bytes the
+    fused step's gather added here, and what it would add on the
+    production (16, 16) mesh."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as lm_model
+    from repro_torch.serving import engine, server
+
+    t_phase = time.perf_counter()
+    cfg = registry.get_config(LM_ARCH, mask_samples=LM_MASKS)
+    model = lm_model.build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0), device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=torch.Generator(dev).manual_seed(1),
+                            device=dev)
+    _, traffic = server_traffic(cfg.vocab_size)
+    wave = traffic[:SRV_WAVE]
+
+    def timed(fn, meshed: bool):
+        """(outputs, engine steps, ms, launches) of one run."""
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, steps = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        return out, steps, ms, add_counts(meshed)
+
+    def serve(p, mesh, fused):
+        return engine.serve_uncertain(
+            model, p, prompts, engine.ServeConfig(max_new_tokens=LM_NEW,
+                                                  fused=fused),
+            mesh=mesh, device=dev), LM_NEW
+
+    def serve_wave(p, mesh):
+        srv = server.BayesianLMServer(
+            model, p, server.ServerConfig(
+                max_slots=SRV_SLOTS, max_prompt_len=LM_PROMPT,
+                max_new_tokens=LM_NEW, fused=False),
+            mesh=mesh, device=dev)
+        rids = [srv.submit(q, max_new_tokens=m) for q, m in wave]
+        steps = 0
+        while srv.step():
+            steps += 1
+        return [(srv.result(r).generated, srv.result(r).uncertainty)
+                for r in rids], steps
+
+    legs = {}
+    with world():
+        mesh = mesh_2d()
+        sharded = sharding.distribute_tree(
+            params, sharding.param_shardings(mesh, params))
+        for leg, fused in (("per_op", False), ("fused", True)):
+            serve(params, None, fused)               # warm: builds, caches
+            serve(sharded, mesh, fused)
+            legs[leg] = (timed(lambda f=fused: serve(params, None, f), False),
+                         timed(lambda f=fused: serve(sharded, mesh, f),
+                               True))
+        # the last fused call flattened the DTensor parameters
+        gathered = plan_lib.compile_decode_step(cfg, device=dev) \
+            .gathered_bytes
+        again = timed(lambda: serve(params, None, True), False)[0]
+        legs["server"] = (timed(lambda: serve_wave(params, None), False),
+                          timed(lambda: serve_wave(sharded, mesh), True))
+        del sharded
+    meta = model.param_specs()
+    prod_gathered = dryrun.sharded_bytes(meta, sharding.param_shardings(
+        {"data": 1, "model": 1}, meta)) - dryrun.sharded_bytes(
+        meta, sharding.param_shardings({"data": 16, "model": 16}, meta))
+    failures = []
+    for leg, ((want, w_steps, w_ms, w_n), (got, g_steps, g_ms, g_n)) \
+            in legs.items():
+        if leg == "server":
+            tokens_equal = [g for g, _ in got] == [g for g, _ in want]
+            unc_equal = [u for _, u in got] == [u for _, u in want]
+            unc_gap = max(abs(a - b) for (_, ua), (_, ub) in zip(got, want)
+                          for a, b in zip(ua, ub))
+        else:
+            tokens_equal = torch.equal(got[0], want[0])
+            unc_equal = torch.equal(got[1], want[1])
+            unc_gap = float((got[1] - want[1]).abs().max())
+        fields = dict(leg=leg, tokens_equal=tokens_equal,
+                      rel_unc_bit_equal=unc_equal, rel_unc_max_gap=unc_gap,
+                      steps=g_steps, ms_per_step=g_ms / g_steps,
+                      ms_per_step_plain=w_ms / w_steps,
+                      launches=g_n, launches_plain=w_n)
+        if leg == "fused":
+            fields.update(plain_runs_bit_equal=torch.equal(again[1],
+                                                           want[1]),
+                          gathered_bytes=gathered,
+                          gathered_bytes_16x16=prod_gathered)
+        _phase("serve_sharded", arch=LM_ARCH, layers=cfg.n_layers,
+               masks=LM_MASKS, **fields)
+        ran = {"flash_attention": True, "moments": True,
+               "fused_decode": leg == "fused"}
+        bits_ok = unc_equal or (leg == "fused" and unc_gap <= TOL_LM_UNC)
+        if not (tokens_equal and bits_ok) or g_steps != w_steps \
+                or g_n != w_n or any((g_n[k] > 0) != on
+                                     for k, on in ran.items()):
+            failures.append(fields)
+    del params
+    torch.cuda.empty_cache()
+    _phase("serve_sharded_summary",
+           seconds=f"{time.perf_counter() - t_phase:.1f}")
+    if failures:
+        raise AssertionError(f"[serve_sharded] {failures}")
 
 
 def main() -> int:

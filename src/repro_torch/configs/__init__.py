@@ -1,1 +1,2 @@
-"""Model configurations: the schema and the architecture registry."""
+"""Model configurations: the schema, the architecture registry and the
+dry-run cells (``cells.py``)."""

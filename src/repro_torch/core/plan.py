@@ -45,8 +45,9 @@ from repro_torch.core import masks as masks_lib
 from repro_torch.core import masksembles
 from repro_torch.core import packing
 from repro_torch.core import scheduler as sched_lib
+from repro_torch.core import tree as tree_lib
 from repro_torch.core import uncertainty as unc_lib
-from repro_torch.distributed import compression
+from repro_torch.distributed import compression, sharding
 from repro_torch.kernels.fused_decode import ops as fd_ops
 from repro_torch.kernels.fused_plan import ops as fp_ops
 from repro_torch.kernels.fused_plan import ref as fused_ref
@@ -1101,7 +1102,15 @@ def _decode_commit_caches(cfg, caches, knew: torch.Tensor,
 def _decode_runner(cfg, expand_masks: bool, device: torch.device):
     """One decode-step executor per (config, expansion, device). The
     flattened parameter tuple is kept for the last ``params`` tree seen
-    (an identity check), so a serving loop flattens once, not per step."""
+    (an identity check), so a serving loop flattens once, not per step.
+
+    DTensor parameters are taken whole at that flattening, each leaf once
+    (``sharding.whole``: gathered to every rank, as GSPMD hands a custom
+    call replicated operands), and the kernel runs unchanged on them; the
+    bytes this adds on the rank are ``run.gathered_bytes`` (0 on a mesh of
+    one device, where a replicated leaf is its local tensor). A DTensor
+    pool cache is taken whole the same way, and the pool the step commits
+    is plain."""
     spec = lower_fused_decode(cfg, expand_masks=expand_masks)
     rot = next(s.rot_dim for s in spec.steps if s.kind == "attn")
     last: dict[str, Any] = {}
@@ -1109,6 +1118,7 @@ def _decode_runner(cfg, expand_masks: bool, device: torch.device):
 
     @torch.no_grad()
     def run(params, caches, tokens, pos):
+        from torch.distributed.tensor import DTensor
         from repro_torch.models import layers
         tokens = tokens.to(device)
         rows = tokens.shape[0]
@@ -1116,9 +1126,15 @@ def _decode_runner(cfg, expand_masks: bool, device: torch.device):
         if pos_r.ndim == 0:
             pos_r = pos_r.expand(rows).contiguous()
         if last.get("params") is not params or last.get("rows") != rows:
-            last.update(params=params, rows=rows, flat=_decode_flat_params(
-                spec, cfg, params, rows, expand_masks))
-        x = layers.embed_tokens(params["embed"], tokens[:, 0])
+            held = tree_lib.tree_map(sharding.whole, params)
+            run.gathered_bytes = sum(sharding.whole_bytes(t)
+                                     for t in tree_lib.leaves(params))
+            last.update(params=params, rows=rows, embed=held["embed"],
+                        flat=_decode_flat_params(spec, cfg, held, rows,
+                                                 expand_masks))
+        if isinstance(caches[0][next(iter(caches[0]))]["k"], DTensor):
+            caches = tree_lib.tree_map(sharding.whole, caches)
+        x = layers.embed_tokens(last["embed"], tokens[:, 0])
         cos, sin = layers.rope_cos_sin(pos_r, rot, cfg.rope_theta)
         fc = _decode_flat_caches(cfg, caches)
         mean, rel, knew, vnew = fd_ops.fused_decode(
@@ -1126,6 +1142,7 @@ def _decode_runner(cfg, expand_masks: bool, device: torch.device):
         return mean, rel, _decode_commit_caches(cfg, caches, knew, vnew,
                                                 pos_r)
 
+    run.gathered_bytes = 0
     return run
 
 

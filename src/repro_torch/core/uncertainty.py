@@ -14,7 +14,9 @@ from typing import Mapping, Sequence
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels.moments import ops as moments_ops
+from repro_torch.launch import mesh as mesh_lib
 
 __all__ = ["REL_UNC_EPS", "predictive_moments", "relative_uncertainty",
            "token_posterior", "rmse", "UncertaintyRequirements", "RequirementReport",
@@ -66,9 +68,23 @@ def token_posterior(logits: torch.Tensor, n: int
     Shared by the per-op decode step and both prefill forms (one
     ``moments`` launch each on the card); the fused decode kernel's Welford
     epilogue matches it to fp tolerance. n=1 degenerates to plain log-probs
-    with zero uncertainty."""
+    with zero uncertainty.
+
+    DTensor logits (sharded serving) give plain, whole results on every
+    rank: the rows are gathered, so the mask axis is whole on each rank,
+    ``moments`` runs on each rank's shard of the vocabulary (over "model"
+    where it divides), and the argmax is taken over the gathered
+    vocabulary."""
     logp = torch.log_softmax(logits.float(), -1)
+    from torch.distributed.tensor import DTensor
+    if isinstance(logp, DTensor):
+        mesh = logp.device_mesh
+        m = mesh_lib.mesh_shape(mesh).get("model", 1)
+        vocab = "model" if logp.shape[-1] % m == 0 else None
+        logp = logp.redistribute(mesh, sharding.to_placements(
+            (None, vocab), mesh))
     mean, std = predictive_moments(logp.reshape(n, -1, logp.shape[-1]))
+    mean, std = sharding.whole(mean), sharding.whole(std)
     tok = mean.argmax(-1, keepdim=True)
     std_t = std.gather(-1, tok)[:, 0]
     mean_t = mean.gather(-1, tok)[:, 0]

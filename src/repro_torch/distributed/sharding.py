@@ -45,7 +45,7 @@ Params = Any
 __all__ = ["batch_axes", "param_pspec", "param_shardings", "tree_shardings",
            "batch_shardings", "cache_shardings", "replicated", "PARAM_RULES",
            "NamedSharding", "to_placements", "distribute", "distribute_tree",
-           "gather_tree"]
+           "gather_tree", "whole", "whole_bytes"]
 
 
 def batch_axes(mesh) -> tuple[str, ...]:
@@ -274,3 +274,24 @@ def gather_tree(tree: Params) -> Params:
     from torch.distributed.tensor import DTensor
     return tree_lib.tree_map(
         lambda t: t.full_tensor() if isinstance(t, DTensor) else t, tree)
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's logical value as this rank's plain tensor (every sharded
+    mesh dim gathered, a partial sum reduced: a collective, every rank
+    calls it); a plain tensor as it is. A DTensor that is replicated
+    already hands back its local tensor, with no copy."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    return t.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local()
+
+
+def whole_bytes(t: torch.Tensor) -> int:
+    """The bytes :func:`whole` adds on this rank: the full value's less the
+    local shard's (0 for a plain or a replicated tensor)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return 0
+    return (t.numel() - t.to_local().numel()) * t.element_size()

@@ -29,8 +29,14 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "build", "load", "bind", "check_no_grad",
-           "check_operands", "on_device", "stream_of", "check_launch"]
+__all__ = ["NVCC_FLAGS", "PLAIN_DEVICES", "build", "load", "bind",
+           "check_no_grad", "check_operands", "on_device", "stream_of",
+           "check_launch"]
+
+#: Device types on which a wrapper runs its kernel's plain version: the
+#: CPU, and ``meta`` (shapes alone, as the dry-run traces them: nothing is
+#: computed there, and no kernel could run).
+PLAIN_DEVICES = ("cpu", "meta")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"

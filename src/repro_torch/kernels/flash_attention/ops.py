@@ -1,10 +1,17 @@
 """Public wrapper of the flash_attention kernel
 (``csrc/flash_attention.cu``).
 
-Dispatch is by device: a CPU tensor takes the plain version
+Dispatch is by device: a CPU (or ``meta``) tensor takes the plain version
 (:func:`ref.flash_attention_ref`, the port's prefill attention), a CUDA
 tensor launches the kernel or raises. No padding: the kernel masks ragged
 Sq, Skv and head widths up to 256.
+
+DTensor operands run the same wrapper on each rank's local shard
+(``local_map``), one launch a rank: a sequence dim sharded anywhere is
+gathered first (the KV-sequence layout: each query needs every key), a
+partial sum reduced, and the key/value heads take the query's head shards
+(head-TP: local query heads read local KV heads) where their count divides,
+else every head is gathered.
 """
 
 from __future__ import annotations
@@ -34,7 +41,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     query-chunk length of the plain version (its peak memory); the kernel
     does not read it."""
     _build.check_no_grad("flash_attention", q=q, k=k, v=v)
-    if q.device.type == "cpu":
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        return _on_local_shards(q, k, v, causal, chunk)
+    if q.device.type in _build.PLAIN_DEVICES:
         return _ref.flash_attention_ref(q, k, v, causal=causal, chunk=chunk)
     if q.dtype not in _ENTRIES:
         raise TypeError(f"flash_attention: q is {q.dtype}, kernel takes "
@@ -72,3 +82,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 #: Kernel launches since the count was last set to 0.
 flash_attention.launches = 0
+
+
+def _on_local_shards(q, k, v, causal: bool, chunk: int) -> torch.Tensor:
+    """:func:`flash_attention` on DTensors: batch and head shards kept,
+    the sequence dims (and any head shard the KV heads cannot follow)
+    gathered, then one wrapper call a rank on its local q/k/v; the output
+    takes q's layout."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    hkv = k.shape[1]
+    pl = tuple(Replicate() if d.is_partial() or (
+                   d.is_shard() and (d.dim >= 2 or (
+                       d.dim == 1 and hkv % mesh.size(i))))
+               else d for i, d in enumerate(q.placements))
+    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+    return local_map(
+        lambda a, b, c: flash_attention(a.contiguous(), b.contiguous(),
+                                        c.contiguous(), causal=causal,
+                                        chunk=chunk),
+        out_placements=(pl,), in_placements=(pl, pl, pl),
+        device_mesh=mesh)(q, k, v)

@@ -1,9 +1,14 @@
 """Public wrapper of the moments kernel (``csrc/moments.cu``).
 
-Dispatch is by device: a CPU tensor takes the plain version
+Dispatch is by device: a CPU (or ``meta``) tensor takes the plain version
 (:func:`ref.moments_ref`), a CUDA tensor launches the kernel or raises. No
 padding: the kernel masks the ragged tail of B·P itself and takes any
 N >= 1.
+
+A DTensor operand runs the same wrapper on each rank's local shard
+(``local_map``), one launch a rank: the sample axis is made whole on every
+rank (gathered if sharded, a partial sum reduced); B and P keep their
+shards, and the mean and std take them.
 """
 
 from __future__ import annotations
@@ -43,7 +48,10 @@ def moments(samples: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"moments: samples {tuple(samples.shape)} are not "
                          f"[N, B, P]")
     _build.check_no_grad("moments", samples=samples)
-    if samples.device.type == "cpu":
+    from torch.distributed.tensor import DTensor
+    if isinstance(samples, DTensor):
+        return _on_local_shards(samples)
+    if samples.device.type in _build.PLAIN_DEVICES:
         return _ref.moments_ref(samples)
     if samples.dtype not in _ENTRIES:
         raise TypeError(f"moments: samples are {samples.dtype}, kernel takes "
@@ -68,3 +76,19 @@ def moments(samples: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 #: Kernel launches since the count was last set to 0.
 moments.launches = 0
+
+
+def _on_local_shards(samples) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moments` on a DTensor [N, B, P]: N whole on every rank, one
+    wrapper call a rank on its local [N, B', P'] shard -> DTensor (mean,
+    std) sharded as B and P were."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = samples.device_mesh
+    pl = tuple(Replicate() if d.is_partial() or d.is_shard(0) else d
+               for d in samples.placements)
+    out = tuple(Shard(d.dim - 1) if d.is_shard() else Replicate()
+                for d in pl)
+    return local_map(lambda s: moments(s.contiguous()),
+                     out_placements=(out, out), in_placements=(pl,),
+                     device_mesh=mesh)(samples.redistribute(mesh, pl))

@@ -1,7 +1,7 @@
 """Public wrappers of the rglru_scan kernels (``csrc/rglru_scan.cu``), and
 the differentiable scan over them.
 
-Dispatch is by device: a CPU tensor takes the plain version
+Dispatch is by device: a CPU (or ``meta``) tensor takes the plain version
 (:mod:`ref`), a CUDA tensor launches the kernel or raises. No padding: the
 kernels mask ragged B and W and take any S >= 1.
 
@@ -42,7 +42,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a, b [B, S, W] fp32 -> h [B, S, W] fp32 with
     ``h_t = a_t h_{t-1} + b_t`` from a zero state."""
     _build.check_no_grad("rglru_scan", a=a, b=b)
-    if a.device.type == "cpu":
+    if a.device.type in _build.PLAIN_DEVICES:
         return _ref.rglru_scan_ref(a, b)
     dev = _build.check_operands("rglru_scan", a=a, b=b)
     bsz, s, w = _check_shapes("rglru_scan", a=a, b=b)
@@ -71,7 +71,7 @@ def rglru_scan_backward(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor
     Counts on ``rglru_scan.launches`` and ``rglru_scan.backward_launches``.
     """
     _build.check_no_grad("rglru_scan_backward", a=a, h=h, g=g)
-    if a.device.type == "cpu":
+    if a.device.type in _build.PLAIN_DEVICES:
         return _ref.rglru_scan_bwd_ref(a, h, g)
     dev = _build.check_operands("rglru_scan_backward", a=a, h=h, g=g)
     bsz, s, w = _check_shapes("rglru_scan_backward", a=a, h=h, g=g)

@@ -13,6 +13,15 @@ The ambient mesh (:func:`set_mesh`, :func:`use_mesh`) is what the model's
 activation hints (``models.layers.constrain``/``axis_size``) resolve
 against, as the reference's hints resolve against JAX's ambient mesh. No
 ambient mesh means no hints.
+
+The production meshes keep the reference's shapes and dim names: one pod
+of 256 devices as (16, 16) ``("data", "model")``, two pods as
+(2, 16, 16) ``("pod", "data", "model")``. :func:`init_fake_world` opens a
+``fake`` process group of that size in one process (it communicates
+nothing: a collective returns its output buffer unfilled), which is what
+the dry-run lays its ``meta`` tensors out on. :func:`make_production_mesh`
+is a function, never a module constant: importing this module builds no
+mesh and opens no group.
 """
 
 from __future__ import annotations
@@ -26,8 +35,13 @@ import torch.distributed as dist
 
 from repro_torch import device as device_lib
 
-__all__ = ["init_world", "make_mesh", "set_mesh", "get_mesh", "use_mesh",
+__all__ = ["init_world", "init_fake_world", "make_mesh",
+           "make_production_mesh", "make_cpu_mesh", "SINGLE_POD_SHAPE",
+           "MULTI_POD_SHAPE", "set_mesh", "get_mesh", "use_mesh",
            "mesh_shape", "MAX_TIMEOUT_S"]
+
+SINGLE_POD_SHAPE = (16, 16)              # 256 devices (one pod)
+MULTI_POD_SHAPE = (2, 16, 16)            # 2 pods = 512 devices
 
 #: The longest a collective may wait before it fails (seconds): a hung
 #: collective raises instead of stalling its caller.
@@ -58,6 +72,38 @@ def init_world(init_method: str, rank: int, world_size: int, *,
         "nccl" if kind == "cuda" else "gloo", init_method=init_method,
         rank=rank, world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout_s), **kwargs)
+
+
+def init_fake_world(world_size: int) -> None:
+    """The default process group as a ``fake`` group of ``world_size``
+    ranks, this process being rank 0: a one-process stand-in for a
+    cluster (``torch.testing``'s ``FakeStore``). Collectives run no
+    communication. Destroy it with
+    ``torch.distributed.destroy_process_group()``."""
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
+def _production(multi_pod: bool) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    if multi_pod:
+        return MULTI_POD_SHAPE, ("pod", "data", "model")
+    return SINGLE_POD_SHAPE, ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str | None = None):
+    """The production mesh — (16, 16) ``("data", "model")``, or (2, 16, 16)
+    ``("pod", "data", "model")`` with ``multi_pod`` — over the default
+    process group, whose world must be 256 (512) ranks: a real cluster's,
+    or :func:`init_fake_world`'s."""
+    return make_mesh(*_production(multi_pod), device_type=device_type)
+
+
+def make_cpu_mesh(shape: tuple[int, ...], names: tuple[str, ...]):
+    """A small mesh of CPU ranks (gloo, or a fake group) for tests."""
+    return make_mesh(shape, names, device_type="cpu")
 
 
 def make_mesh(shape: tuple[int, ...], names: tuple[str, ...], *,

@@ -7,11 +7,15 @@ same leaf names (wq/wk/wv/wo, wg/wu/wd, embed/unembed, masks), so a
 reference checkpoint maps onto them one to one
 (``transformer.params_from_jax``). Products between a narrow and a wide
 dtype promote to the wide one first, as JAX does. The reference's sharding
-hints (``constrain``/``axis_size``) have no counterpart here.
+hints are :func:`constrain`/:func:`axis_size` against the ambient mesh;
+every layer also runs on DTensors (the sharded train step and sharded
+serving), the cache write of :func:`kv_cache_update` as an elementwise
+select so that a sequence-sharded cache keeps its layout.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any
 
@@ -27,8 +31,9 @@ from repro_torch.launch import mesh as mesh_lib
 Params = dict[str, Any]
 
 __all__ = ["resolve_spec", "constrain", "local_pointwise", "gather_dim",
-           "axis_size", "dense_init", "dense", "norm_init", "norm_apply",
-           "rope_cos_sin", "mrope_cos_sin", "apply_rope", "attn_init", "attention_full", "attention_chunked",
+           "split_fit", "dtensor_scope", "axis_size", "dense_init", "dense",
+           "norm_init", "norm_apply", "rope_cos_sin", "mrope_cos_sin", "apply_rope",
+           "attn_init", "attention_full", "attention_chunked",
            "attention_banded", "attention_decode", "kv_store_dtype",
            "quantize_kv", "kv_cache_shapes", "init_kv_cache",
            "kv_cache_update", "ffn_init", "ffn_apply", "mask_table",
@@ -104,6 +109,26 @@ def gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
         Replicate() if d.is_shard(dim) else d for d in x.placements))
 
 
+@contextlib.contextmanager
+def dtensor_scope(*tensors):
+    """Where any of ``tensors`` is a DTensor, DTensor's implicit
+    replication inside the block: the plain tensors the serving math makes
+    (positions, slot masks, mask ids, rotary tables) join DTensor ops as
+    replicated values. Unlike ``implicit_replication()``, it nests: the
+    setting before the block comes back after it."""
+    from torch.distributed.tensor import DTensor
+    if not any(isinstance(t, DTensor) for t in tensors):
+        yield
+        return
+    dispatcher = DTensor._op_dispatcher
+    prev = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = prev
+
+
 def axis_size(name: str) -> int:
     """Size of a dim of the ambient mesh (1 if absent, or no mesh)."""
     mesh = mesh_lib.get_mesh()
@@ -119,9 +144,23 @@ def _randn(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` with JAX's type promotion (bf16 @ f32 -> f32)."""
+    """``a @ b`` with JAX's type promotion (bf16 @ f32 -> f32). Leading
+    dims of ``a`` against a matrix ``b`` fold into one ``mm``: the choice
+    ``torch.matmul`` makes from ``a``'s strides (fold or a batched product)
+    would otherwise differ between a plain tensor and a DTensor holding
+    the same values, whose strides on a size-1 dim may differ."""
     dt = torch.promote_types(a.dtype, b.dtype)
-    return torch.matmul(a.to(dt), b.to(dt))
+    a, b = a.to(dt), b.to(dt)
+    if a.ndim >= 3 and b.ndim == 2:
+        flat = a.reshape(-1, a.shape[-1])
+        from torch.distributed.tensor import DTensor
+        if isinstance(flat, DTensor):
+            # the folded rows' gradient in their own layout: otherwise
+            # DTensor may scatter it over the folded sequence, which the
+            # unfold turns into strided shards (slow to plan on 3-D meshes)
+            flat = flat.redistribute(flat.device_mesh, flat.placements)
+        return torch.matmul(flat, b).reshape(*a.shape[:-1], b.shape[-1])
+    return torch.matmul(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -234,8 +273,23 @@ def attn_init(gen: torch.Generator, cfg, dtype) -> Params:
     }
 
 
+def split_fit(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` ready to split ``dim`` into ``n`` leading parts: a DTensor
+    dim sharded over more ranks than ``n`` divides into is gathered first
+    (DTensor cannot unflatten it); anything else as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    parts = 1
+    for i, d in enumerate(x.placements):
+        if d.is_shard(dim):
+            parts *= x.device_mesh.size(i)
+    return gather_dim(x, dim) if n % parts else x
+
+
 def split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     b, s, _ = x.shape
+    x = split_fit(x, 2, n)
     return x.reshape(b, s, n, -1).transpose(1, 2)          # [B, n, S, dh]
 
 
@@ -250,7 +304,7 @@ def _grouped_scores(q: torch.Tensor, k: torch.Tensor,
     (or q's dtype with ``scores_f32=False``), without repeating k."""
     b, h, sq, dh = q.shape
     hkv = k.shape[1]
-    qg = q.reshape(b, hkv, h // hkv, sq, dh)
+    qg = split_fit(q, 1, hkv).reshape(b, hkv, h // hkv, sq, dh)
     out = torch.einsum("bkgqd,bksd->bkgqs", qg.float(), k.float())
     return out if scores_f32 else out.to(q.dtype)
 
@@ -301,7 +355,10 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sq = q.shape[2]
     if sq % chunk:
         return attention_full(q, k, v, causal=causal, scores_f32=scores_f32)
-    q = gather_dim(q, 2)        # the query chunks are slices of S
+    # the query chunks are slices of S; each chunk's softmax runs over
+    # every key, so K/V sharded over S are gathered once here rather than
+    # each chunk's scores
+    q, k, v = (gather_dim(t, 2) for t in (q, k, v))
     outs = [_chunk_body(lambda qi, kk, vv, i=i: attention_full(
                 qi, kk, vv, causal=causal, q_offset=i,
                 scores_f32=scores_f32), q[:, :, i:i + chunk], k, v)
@@ -428,19 +485,19 @@ def kv_cache_update(cache: Params, k_new: torch.Tensor, v_new: torch.Tensor,
     if pos.ndim == 0:
         pos = pos.expand(b)
     slot = ((pos % window) if window else pos) % smax
-    bidx = torch.arange(b, device=dev)
-    k = cache["k"].clone()
-    v = cache["v"].clone()
-    kpos = cache["kpos"].clone()
-    k[bidx, :, slot] = k_new[:, :, 0].to(k.dtype)
-    v[bidx, :, slot] = v_new[:, :, 0].to(v.dtype)
-    kpos[bidx, slot] = pos.to(torch.int32)
-    out = {"k": k, "v": v, "kpos": kpos}
-    if quant:
-        out["kscale"] = cache["kscale"].clone()
-        out["vscale"] = cache["vscale"].clone()
-        out["kscale"][bidx, :, slot] = k_sc[:, :, 0]
-        out["vscale"][bidx, :, slot] = v_sc[:, :, 0]
+    # the write as a select over the slot axis (elementwise: a cache
+    # sharded over its sequence keeps its layout)
+    hit = torch.arange(smax, device=dev) == slot[:, None]      # [B, Smax]
+    with dtensor_scope(cache["k"], k_new):
+        out = {"k": torch.where(hit[:, None, :, None],
+                                k_new.to(cache["k"].dtype), cache["k"]),
+               "v": torch.where(hit[:, None, :, None],
+                                v_new.to(cache["v"].dtype), cache["v"]),
+               "kpos": torch.where(hit, pos[:, None].to(torch.int32),
+                                   cache["kpos"])}
+        if quant:
+            out["kscale"] = torch.where(hit[:, None], k_sc, cache["kscale"])
+            out["vscale"] = torch.where(hit[:, None], v_sc, cache["vscale"])
     return out
 
 

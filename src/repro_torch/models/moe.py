@@ -91,6 +91,13 @@ def moe_apply(p: Params, x: torch.Tensor, cfg,
     n_groups = tokens // group
     cap = _capacity(cfg, group)
 
+    # the groups split over the batch axes alone (DTensor cannot view a
+    # dim sharded over more ranks than it splits into): x and the output
+    # state that layout, and so do their gradients; fewer groups than
+    # batch shards (a decode step's few rows) take the batch whole
+    batch_shards = layers.axis_size("pod") * layers.axis_size("data")
+    x = (layers.constrain(x, ("batch", None, None))
+         if n_groups % batch_shards == 0 else layers.gather_dim(x, 0))
     xt = x.reshape(n_groups, group, d)
     logits = layers.dense(p["router"], xt).float()              # [G,T,E]
     probs = torch.softmax(logits, -1)
@@ -136,7 +143,9 @@ def moe_apply(p: Params, x: torch.Tensor, cfg,
         pick = torch.nn.functional.one_hot(
             slot_mid.long(), p["masks"].shape[0]).to(p["masks"].dtype)
         h = h * (pick @ p["masks"])                             # [G,E,C,F]
-    ye = torch.einsum("gecf,efd->gecd", h, p["wed"])            # [G,E,C,D]
+    # contiguous: DTensor's einsum views the local shard as the global
+    # layout's strides would allow, which the mask product's need not
+    ye = torch.einsum("gecf,efd->gecd", h.contiguous(), p["wed"])  # [G,E,C,D]
     ye = layers.constrain(ye, ep) if ep else ye
     y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ye)
 
@@ -145,7 +154,7 @@ def moe_apply(p: Params, x: torch.Tensor, cfg,
     p_e = probs.mean(1)
     aux = (f_e * p_e).sum(-1).mean() * e
 
-    y = y.reshape(b, s, d)
+    y = layers.constrain(y.reshape(b, s, d), ("batch", None, None))
     if "dense" in p:                # arctic's parallel dense residual
         y = y + layers.ffn_apply(p["dense"], x, cfg, mask_ids=mask_ids)
     return y, aux

@@ -43,6 +43,15 @@ Entry points:
 
 Masksembles rides through every FFN via ``mask_ids``: fixed masks over the
 hidden units, assigned per batch row.
+
+Sharded serving: ``prefill`` and ``decode_step`` take parameters laid out
+as DTensors (``distributed.sharding.param_shardings``) and caches laid
+out by ``cache_shardings``; the prompt's tokens are laid out by
+``batch_shardings`` on the parameters' mesh, the plain tensors the math
+makes join as replicated values, and every new cache leaf takes the layout
+of the cache leaf it replaces, so a pool keeps its layout across steps (the
+reference's ``out_shardings=(None, cache_sh)``). The slot-pool helpers
+below keep it too.
 """
 
 from __future__ import annotations
@@ -58,15 +67,17 @@ from repro_torch import device as device_lib
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import masksembles
 from repro_torch.core import plan as plan_lib
+from repro_torch.distributed import sharding
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers, rglru, xlstm
 from repro_torch.models import moe as moe_lib
 
 Params = dict[str, Any]
 
-__all__ = ["init", "params_from_jax", "train_state_from_jax", "init_cache",
-           "cache_specs", "cache_scatter_rows", "cache_gather_rows",
-           "cache_reset_rows", "cache_trim_positions", "pack_ffn_params",
+__all__ = ["init", "params_from_jax", "train_state_from_jax", "params_mesh",
+           "init_cache", "cache_specs", "cache_scatter_rows",
+           "cache_gather_rows", "cache_reset_rows", "cache_trim_positions",
+           "pack_ffn_params",
            "forward", "forward_train", "prefill", "decode_step"]
 
 
@@ -202,16 +213,46 @@ def _cache_shapes(cfg: ModelConfig, batch: int, max_seq: int):
             for seg in cfg.segments()]
 
 
+def params_mesh(params: Params):
+    """The ``DeviceMesh`` of DTensor parameters, or None for plain ones."""
+    from torch.distributed.tensor import DTensor
+    leaf = params["embed"]["embed"]
+    return leaf.device_mesh if isinstance(leaf, DTensor) else None
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device: torch.device | str | None = None):
+               device: torch.device | str | None = None, mesh=None):
     """Empty caches on ``device`` (None -> card): k/v, int8 scales and
-    recurrent state zero, kpos -1, the xLSTM ``m`` at ``xlstm.NEG``."""
+    recurrent state zero, kpos -1, the xLSTM ``m`` at ``xlstm.NEG``. With
+    ``mesh``, DTensors laid out by ``sharding.cache_shardings`` (each rank
+    fills its own shard)."""
     dev = device_lib.resolve(device)
-    return [{b: {name: torch.full(shape, _CACHE_FILL.get(name, 0),
-                                  dtype=dt, device=dev)
+    shapes = _cache_shapes(cfg, batch, max_seq)
+    if mesh is None:
+        return [{b: {name: torch.full(shape, _CACHE_FILL.get(name, 0),
+                                      dtype=dt, device=dev)
+                     for name, (shape, dt) in leaves.items()}
+                 for b, leaves in seg.items()}
+                for seg in shapes]
+    from torch.distributed.tensor import DTensor
+    meta = [{b: {name: torch.empty(shape, dtype=dt, device="meta")
                  for name, (shape, dt) in leaves.items()}
+             for b, leaves in seg.items()} for seg in shapes]
+
+    def fill(spec: torch.Tensor, sh, name: str):
+        # the shard's shape from a meta stand-in; the shard filled here
+        shard = sharding.distribute(spec, sh)
+        local = torch.full(shard.to_local().shape, _CACHE_FILL.get(name, 0),
+                           dtype=spec.dtype, device=dev)
+        return DTensor.from_local(local, mesh, sh.placements,
+                                  run_check=False, shape=shard.shape,
+                                  stride=shard.stride())
+
+    return [{b: {name: fill(t, sseg[b][name], name)
+                 for name, t in leaves.items()}
              for b, leaves in seg.items()}
-            for seg in _cache_shapes(cfg, batch, max_seq)]
+            for seg, sseg in zip(meta,
+                                 sharding.cache_shardings(mesh, meta))]
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int):
@@ -229,13 +270,38 @@ def _rows_on(rows, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(rows, dtype=torch.int64, device=like.device)
 
 
+def _on_rows(fn, t: torch.Tensor, *others: torch.Tensor) -> torch.Tensor:
+    """``fn(t, *others)`` for an op over the batch axis (1) of cache
+    leaves. On a DTensor ``t`` the batch axis is made whole on every rank
+    and ``fn`` runs on each rank's local shard (it touches no other axis,
+    so those keep their shards with no collective); the result takes
+    ``t``'s layout back, and ``others`` take ``t``'s (a plain one holds the
+    same value on every rank). A plain ``t`` takes ``others`` whole."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    if not isinstance(t, DTensor):
+        return fn(t, *(sharding.whole(o) for o in others))
+    mesh = t.device_mesh
+    pl = tuple(Replicate() if d.is_partial() or d.is_shard(1) else d
+               for d in t.placements)
+    args = [a.redistribute(mesh, pl) if isinstance(a, DTensor)
+            else sharding.distribute(a, sharding.NamedSharding(mesh, ()))
+            .redistribute(mesh, pl) for a in (t,) + others]
+    out = local_map(fn, out_placements=(pl,), in_placements=(pl,) * len(args),
+                    device_mesh=mesh)(*args)
+    return out.redistribute(mesh, t.placements) \
+        if out.shape[1] == t.shape[1] else out
+
+
 def cache_scatter_rows(pool, fresh, rows):
     """Write the rows of a small cache (batch b) into a pooled cache (batch
     B >= b) at batch indices ``rows`` [b] — how the server places a newly
     admitted request's prefill into its slot rows while in-flight rows keep
-    decoding."""
-    return [{b: {name: t.index_copy(1, _rows_on(rows, t),
-                                    fseg[b][name].to(t.dtype))
+    decoding. A sharded pool keeps its layout."""
+    return [{b: {name: _on_rows(
+                     lambda tt, ff: tt.index_copy(1, _rows_on(rows, tt),
+                                                  ff.to(tt.dtype)),
+                     t, fseg[b][name])
                  for name, t in c.items()}
              for b, c in pseg.items()}
             for pseg, fseg in zip(pool, fresh)]
@@ -244,7 +310,8 @@ def cache_scatter_rows(pool, fresh, rows):
 def cache_gather_rows(pool, rows):
     """The pooled cache restricted to batch indices ``rows`` [b] — the
     inverse of :func:`cache_scatter_rows` (slot inspection)."""
-    return [{b: {name: t.index_select(1, _rows_on(rows, t))
+    return [{b: {name: _on_rows(
+                     lambda tt: tt.index_select(1, _rows_on(rows, tt)), t)
                  for name, t in c.items()}
              for b, c in seg.items()}
             for seg in pool]
@@ -256,18 +323,16 @@ def cache_reset_rows(pool, row_mask):
     this when a slot group is freed, so unoccupied rows stay observably
     empty. The xLSTM ``m`` goes to 0 too, not to its init value, as in the
     reference: admission overwrites every leaf of the row."""
-    out = []
-    for seg in pool:
-        new = {}
-        for b, c in seg.items():
-            new[b] = {}
-            for name, t in c.items():
-                m = torch.as_tensor(row_mask, dtype=torch.bool,
-                                    device=t.device)
-                m = m.reshape((1, m.shape[0]) + (1,) * (t.ndim - 2))
-                new[b][name] = t.masked_fill(m, -1 if name == "kpos" else 0)
-        out.append(new)
-    return out
+    def reset(t: torch.Tensor, value: int) -> torch.Tensor:
+        m = torch.as_tensor(row_mask, dtype=torch.bool, device=t.device)
+        m = m.reshape((1, m.shape[0]) + (1,) * (t.ndim - 2))
+        return t.masked_fill(m, value)
+
+    return [{b: {name: _on_rows(functools.partial(
+                     reset, value=-1 if name == "kpos" else 0), t)
+                 for name, t in c.items()}
+             for b, c in seg.items()}
+            for seg in pool]
 
 
 def cache_trim_positions(caches, length: int):
@@ -284,14 +349,40 @@ def cache_trim_positions(caches, length: int):
                                  f"which cannot be trimmed by position")
             smax = c["kpos"].shape[-1]
             keep = torch.arange(smax, device=c["kpos"].device) < length
-            new[b] = {
-                "k": torch.where(keep[:, None], c["k"], 0).to(c["k"].dtype),
-                "v": torch.where(keep[:, None], c["v"], 0).to(c["v"].dtype),
-                "kpos": torch.where(keep, c["kpos"], -1).to(torch.int32)}
-            for name in ("kscale", "vscale"):
-                if name in c:           # [reps, B, hkv, smax]: slot is last
-                    new[b][name] = torch.where(keep, c[name], 0.0)
+            with layers.dtensor_scope(c["k"]):
+                new[b] = {
+                    "k": torch.where(keep[:, None], c["k"], 0).to(
+                        c["k"].dtype),
+                    "v": torch.where(keep[:, None], c["v"], 0).to(
+                        c["v"].dtype),
+                    "kpos": torch.where(keep, c["kpos"], -1).to(torch.int32)}
+                for name in ("kscale", "vscale"):
+                    if name in c:       # [reps, B, hkv, smax]: slot is last
+                        new[b][name] = torch.where(keep, c[name], 0.0)
+            new[b] = _keep_layout(new[b], c)
         out.append(new)
+    return out
+
+
+def _keep_layout(new: dict, like: dict) -> dict:
+    """Each leaf of ``new`` in the layout of ``like``'s leaf of its name:
+    a DTensor redistributed (a plain leaf, which holds the same value on
+    every rank, distributed) where ``like``'s is a DTensor; taken whole
+    where ``like``'s is plain."""
+    from torch.distributed.tensor import DTensor
+    if not any(isinstance(t, DTensor)
+               for t in (*new.values(), *like.values())):
+        return new
+    out = {}
+    for name, t in new.items():
+        ref = like[name]
+        if isinstance(ref, DTensor):
+            sh = sharding.NamedSharding(ref.device_mesh, ())
+            t = (t if isinstance(t, DTensor) else sharding.distribute(t, sh))
+            t = t.redistribute(ref.device_mesh, ref.placements)
+        else:
+            t = sharding.whole(t)
+        out[name] = t
     return out
 
 
@@ -397,21 +488,26 @@ def _prefill_kv_cache(cfg: ModelConfig, cache, k: torch.Tensor,
     kept_pos = torch.arange(s - keep, s, dtype=torch.int64, device=k.device)
     slots = kept_pos % smax
     store = layers.kv_store_dtype(k.dtype, cfg.kv_dtype)
-    kk, vk = k[:, :, -keep:], v[:, :, -keep:]
+    kk, vk = (layers.gather_dim(t, 2)[:, :, s - keep:] for t in (k, v))
+
+    def place(t: torch.Tensor) -> torch.Tensor:
+        # [B, Hkv, keep(, dh)] -> [B, Hkv, smax(, dh)]: position p at slot
+        # p % smax — the kept run rotated by its first slot, or followed
+        # by empty (zero) slots
+        if keep == smax:
+            return torch.roll(t, (s - keep) % smax, 2)
+        pad = (0, 0) * (t.ndim - 3) + (0, smax - keep)
+        return torch.nn.functional.pad(t, pad)
+
     new_cache = {}
     if cfg.kv_dtype == "int8":      # empty slots keep a zero scale
         kk, k_sc = layers.quantize_kv(kk)
         vk, v_sc = layers.quantize_kv(vk)
-        for name, sc in (("kscale", k_sc), ("vscale", v_sc)):
-            new_cache[name] = torch.zeros_like(cache[name])
-            new_cache[name][:, :, slots] = sc
-    ks = torch.zeros_like(cache["k"], dtype=store)
-    vs = torch.zeros_like(cache["v"], dtype=store)
-    ks[:, :, slots] = kk.to(store)
-    vs[:, :, slots] = vk.to(store)
+        new_cache.update(kscale=place(k_sc), vscale=place(v_sc))
     kpos = torch.full((smax,), -1, dtype=torch.int32, device=k.device)
     kpos[slots] = kept_pos.to(torch.int32)
-    new_cache.update(k=ks, v=vs, kpos=kpos[None].expand(b, smax).clone())
+    new_cache.update(k=place(kk.to(store)), v=place(vk.to(store)),
+                     kpos=kpos[None].expand(b, smax).clone())
     return new_cache
 
 
@@ -424,6 +520,15 @@ def _block_apply(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     """x [B,S,D] (forward/train/prefill) or [B,1,D] (decode) -> (x, new
     cache, MoE aux loss or None). ``forward`` and ``train`` modes build no
     cache."""
+    # the residual stream's layout (a hint, as _embed_in states it):
+    # batch-sharded, and sequence-sharded under seq_shard (attention
+    # blocks). Each mixer's output and each block's output keep it: a
+    # head-parallel output product leaves a partial sum that DTensor would
+    # otherwise scatter over the sequence, which the recurrences cannot
+    # take and the next block's MoE groups cannot split
+    seqp = (("batch", "model", None)
+            if cfg.seq_shard and mode != "decode" else None)
+    resid = seqp or ("batch", None, None)
     if kind in ("mlstm", "slstm"):
         if mode == "decode":
             step = (xlstm.mlstm_block_step if kind == "mlstm"
@@ -434,7 +539,8 @@ def _block_apply(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor, *,
             apply = (xlstm.mlstm_block_apply if kind == "mlstm"
                      else xlstm.slstm_block_apply)
             y, new_cache = apply(p, x, cfg, mask_ids=mask_ids)
-        return x + y, (None if mode in _NO_CACHE else new_cache), None
+        return layers.constrain(x + y, resid), \
+            (None if mode in _NO_CACHE else new_cache), None
     if kind == "rec":
         xn = layers.norm_apply(p["norm1"], x, cfg.norm)
         if mode == "decode":
@@ -443,17 +549,13 @@ def _block_apply(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor, *,
             y = y[:, None, :]
         else:
             y, new_cache = rglru.rec_block_apply(p["rec"], xn, cfg)
-        x = x + y
+        x = layers.constrain(x + y, resid)
         if mode in _NO_CACHE:
             new_cache = None
     elif kind in ("attn", "local_attn", "moe"):
-        # the residual stream sequence-sharded under seq_shard (a hint)
-        seqp = (("batch", "model", None)
-                if cfg.seq_shard and mode != "decode" else None)
         x, new_cache = _attention_sublayer(cfg, p, x, rope, mode, kind,
                                            cache, pos)
-        if seqp:
-            x = layers.constrain(x, seqp)
+        x = layers.constrain(x, resid)
         xn = layers.norm_apply(p["norm2"], x, cfg.norm)
         if kind == "moe":
             if seqp and not cfg.moe_local_groups:
@@ -463,12 +565,12 @@ def _block_apply(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         else:
             y = layers.ffn_apply(p["ffn"], xn, cfg, mask_ids=mask_ids)
             aux = None
-        out = x + y
-        return (layers.constrain(out, seqp) if seqp else out), new_cache, aux
+        return layers.constrain(x + y, resid), new_cache, aux
     else:
         raise ValueError(kind)
     xn = layers.norm_apply(p["norm2"], x, cfg.norm)
-    return x + layers.ffn_apply(p["ffn"], xn, cfg, mask_ids=mask_ids), \
+    return layers.constrain(
+        x + layers.ffn_apply(p["ffn"], xn, cfg, mask_ids=mask_ids), resid), \
         new_cache, None
 
 
@@ -537,6 +639,8 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                 x, rc[f"b{i}"], a = _block_apply(
                     kind, cfg, bp, x, mode=mode, rope=rope,
                     mask_ids=mask_ids, cache=bc, pos=pos)
+                if bc is not None and rc[f"b{i}"] is not None:
+                    rc[f"b{i}"] = _keep_layout(rc[f"b{i}"], bc)
                 if a is not None:
                     aux = aux + a
             outs.append(rc)
@@ -659,17 +763,38 @@ def prefill(cfg: ModelConfig, params: Params, batch: Params,
     ``cfg.dtype``), positions (optional, as for :func:`forward`)} ->
     (logits [B,V] at the last position, or at ``last_index`` — the
     bucketed form — and caches sized ``max_seq`` (default: the prompt
-    length))."""
-    x = _embed_in(cfg, params, batch)
-    b, s = x.shape[:2]
-    mask_ids = _mask_ids(cfg, b, mask_ids, x.device)
-    caches = init_cache(cfg, b, max_seq or s, device=x.device)
-    rope = _rope(cfg, _positions(cfg, batch, s, x.device))
-    x, new_caches, _ = _run_stack(cfg, params, x, mode="prefill", rope=rope,
-                                  mask_ids=mask_ids, caches=caches)
-    i = s - 1 if last_index is None else int(last_index)
-    x = layers.norm_apply(params["final_norm"], x[:, i:i + 1], cfg.norm)
-    return layers.lm_head(params["embed"], x)[:, 0], new_caches
+    length)). DTensor parameters give DTensor logits and caches laid out
+    by ``cache_shardings``."""
+    mesh = params_mesh(params)
+    with layers.dtensor_scope(params["embed"]["embed"]):
+        batch = _batch_on(mesh, batch)
+        x = _embed_in(cfg, params, batch)
+        b, s = x.shape[:2]
+        mask_ids = _mask_ids(cfg, b, mask_ids, x.device)
+        caches = init_cache(cfg, b, max_seq or s, device=x.device, mesh=mesh)
+        rope = _rope(cfg, _positions(cfg, batch, s, x.device))
+        x, new_caches, _ = _run_stack(cfg, params, x, mode="prefill",
+                                      rope=rope, mask_ids=mask_ids,
+                                      caches=caches)
+        i = s - 1 if last_index is None else int(last_index)
+        x = layers.gather_dim(x, 1)[:, i:i + 1]
+        x = layers.norm_apply(params["final_norm"], x, cfg.norm)
+        return layers.lm_head(params["embed"], x)[:, 0], new_caches
+
+
+def _batch_on(mesh, batch: Params) -> Params:
+    """The batch's plain tensors laid out by ``batch_shardings`` on
+    ``mesh`` (every rank passes the same values and keeps its own shard);
+    the batch as it is without a mesh."""
+    from torch.distributed.tensor import DTensor
+    if mesh is None:
+        return batch
+    plain = {k: torch.as_tensor(v) for k, v in batch.items()
+             if not isinstance(v, DTensor)}
+    if not plain:
+        return batch
+    return {**batch, **sharding.distribute_tree(
+        plain, sharding.batch_shardings(mesh, plain))}
 
 
 @torch.no_grad()
@@ -679,18 +804,23 @@ def decode_step(cfg: ModelConfig, params: Params, caches,
     caches). ``pos`` is a scalar shared by the batch or a per-row [B]
     vector (every cache row at its own position); it is both the rotary
     position (every M-RoPE stream) and the cache slot, as in the
-    reference."""
-    x = layers.embed_tokens(params["embed"], tokens)
-    b = x.shape[0]
-    mask_ids = _mask_ids(cfg, b, mask_ids, x.device)
-    p = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
-    if p.ndim == 0:
-        pos_arr = p.expand(3, 1) if cfg.m_rope_sections else p[None]
-    else:
-        pos_arr = (p[None, :, None].expand(3, b, 1) if cfg.m_rope_sections
-                   else p[:, None])
-    x, new_caches, _ = _run_stack(cfg, params, x, mode="decode",
-                                  rope=_rope(cfg, pos_arr),
-                                  mask_ids=mask_ids, caches=caches, pos=p)
-    x = layers.norm_apply(params["final_norm"], x, cfg.norm)
-    return layers.lm_head(params["embed"], x)[:, 0], new_caches
+    reference. DTensor parameters take ``tokens`` laid out by
+    ``batch_shardings`` and give DTensor logits; every new cache leaf keeps
+    the layout of the one it replaces."""
+    mesh = params_mesh(params)
+    with layers.dtensor_scope(params["embed"]["embed"]):
+        tokens = _batch_on(mesh, {"tokens": tokens})["tokens"]
+        x = layers.embed_tokens(params["embed"], tokens)
+        b = x.shape[0]
+        mask_ids = _mask_ids(cfg, b, mask_ids, x.device)
+        p = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+        if p.ndim == 0:
+            pos_arr = p.expand(3, 1) if cfg.m_rope_sections else p[None]
+        else:
+            pos_arr = (p[None, :, None].expand(3, b, 1)
+                       if cfg.m_rope_sections else p[:, None])
+        x, new_caches, _ = _run_stack(cfg, params, x, mode="decode",
+                                      rope=_rope(cfg, pos_arr),
+                                      mask_ids=mask_ids, caches=caches, pos=p)
+        x = layers.norm_apply(params["final_norm"], x, cfg.norm)
+        return layers.lm_head(params["embed"], x)[:, 0], new_caches

@@ -174,7 +174,7 @@ def _mlstm_qkv(p: Params, x: torch.Tensor, cfg):
     b, s, _ = x.shape
     h = cfg.n_heads
     z = layers.dense(p["wu"], x)                        # [B,S,pd]
-    zh = z.reshape(b, s, h, -1).transpose(1, 2)         # [B,H,S,pdh]
+    zh = layers.split_fit(z, 2, h).reshape(b, s, h, -1).transpose(1, 2)
     q = torch.einsum("bhsd,hde->bhse", zh, p["wq"])
     k = torch.einsum("bhsd,hde->bhse", zh, p["wk"]) / math.sqrt(zh.shape[-1])
     v = torch.einsum("bhsd,hde->bhse", zh, p["wv"])
@@ -279,7 +279,8 @@ def _slstm_cell(p: Params, pre_x: torch.Tensor, state: Params, cfg):
     b = pre_x.shape[0]
     d = cfg.d_model
     h = cfg.n_heads
-    hp = state["h"].reshape(b, h, d // h).to(p["rzifo"].dtype)
+    hp = layers.split_fit(state["h"], 1, h).reshape(b, h, d // h).to(
+        p["rzifo"].dtype)
     rec = torch.einsum("bhd,hde->bhe", hp, p["rzifo"]).reshape(b, 4 * d)
     pre = (pre_x + rec).float()
     z, i, f, o = torch.split(pre, d, -1)

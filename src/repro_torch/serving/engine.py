@@ -198,8 +198,8 @@ def generate(model, params: Params, tokens: torch.Tensor,
              device: torch.device | str | None = None) -> torch.Tensor:
     """Greedy generation: tokens [B, S] -> [B, S + max_new_tokens] (int32)
     on ``device`` (None -> the card), where ``params`` must live (plain
-    tensors, under ``mesh`` too: ``server.check_plain_params``)."""
-    server_lib.check_plain_params(params, "generate")
+    tensors, or DTensors on ``mesh`` as :func:`serve_uncertain` takes
+    them)."""
     dev = device_lib.resolve(device)
     tokens = torch.as_tensor(tokens, device=dev).to(torch.int32)
     s = tokens.shape[1]
@@ -244,8 +244,10 @@ def serve_uncertain(model, params: Params, tokens: torch.Tensor,
                     cfg: ServeConfig = ServeConfig(), *, mesh=None,
                     device: torch.device | str | None = None):
     """Bayesian generation with per-token uncertainty, on ``device`` (None
-    -> the card), where ``params`` must live (plain tensors, under
-    ``mesh`` too: ``server.check_plain_params``).
+    -> the card), where ``params`` must live: plain tensors, or DTensors on
+    ``mesh`` laid out by ``sharding.param_shardings`` (the per-op steps run
+    on them with caches laid out by ``cache_shardings``; the fused step
+    gathers each parameter once, ``core.plan.compile_decode_step``).
 
     Returns (generated [B, S+T] int32, rel_uncertainty [B, T],
     flags [B, T]). The request batch is expanded x N once (prefill
@@ -253,7 +255,6 @@ def serve_uncertain(model, params: Params, tokens: torch.Tensor,
     """
     if not model.cfg.bayesian:
         raise ValueError("serve_uncertain requires mask_samples > 0")
-    server_lib.check_plain_params(params, "serve_uncertain")
     dev = device_lib.resolve(device)
     n = model.cfg.mask_samples
     tokens = torch.as_tensor(tokens, device=dev).to(torch.int32)

@@ -52,7 +52,6 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import scheduler as scheduler_lib
-from repro_torch.core import tree as tree_lib
 from repro_torch.core import uncertainty as unc_lib
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer
@@ -63,7 +62,7 @@ from repro_torch.serving.metrics import MetricsCollector, ServingSummary
 
 Params = dict[str, Any]
 
-__all__ = ["mesh_scope", "check_plain_params", "posterior", "StepFns",
+__all__ = ["mesh_scope", "posterior", "StepFns",
            "step_fns", "fallback_counts", "QueueFullError", "Request",
            "VoxelScanRequest", "WorkItem", "RequestState", "ServerConfig",
            "BayesianLMServer"]
@@ -74,18 +73,6 @@ def mesh_scope(mesh):
     (``launch.mesh.use_mesh``); a null context for None."""
     return (mesh_lib.use_mesh(mesh) if mesh is not None
             else contextlib.nullcontext())
-
-
-def check_plain_params(params: Params, entry: str) -> None:
-    """Serving takes plain (replicated) tensors, under a mesh too: the
-    decode kernels take local tensors. A DTensor leaf raises
-    ``ValueError`` naming ``entry``."""
-    from torch.distributed.tensor import DTensor
-    if any(isinstance(t, DTensor) for t in tree_lib.leaves(params)):
-        raise ValueError(
-            f"{entry}: params hold DTensors; serving takes plain tensors "
-            f"(replicated on every rank) under a mesh — sharded serving "
-            f"is not ported")
 
 
 #: Demotions of the fused decode step to the per-op path, keyed by
@@ -465,7 +452,11 @@ class ServerConfig:
 
 class BayesianLMServer:
     """Continuous-batching server over one Bayesian model, on ``device``
-    (None -> the card; ``params`` must live there).
+    (None -> the card; ``params`` must live there). ``params`` may be
+    DTensors on ``mesh`` (``sharding.param_shardings``): the pool cache is
+    then laid out by ``cache_shardings`` and keeps that layout on the
+    per-op path; the fused step gathers each parameter once and commits a
+    plain pool.
 
         server = BayesianLMServer(model, params, ServerConfig(max_slots=4))
         rid = server.submit(prompt_tokens, max_new_tokens=12)
@@ -485,7 +476,6 @@ class BayesianLMServer:
                  tracer: obs_trace.Tracer | None = None) -> None:
         if not model.cfg.bayesian:
             raise ValueError("BayesianLMServer requires mask_samples > 0")
-        check_plain_params(params, "BayesianLMServer")
         self.mesh = mesh
         self.device = device_lib.resolve(device)
         # The cached step closures are process-global, so the default
@@ -505,8 +495,10 @@ class BayesianLMServer:
         self.steps = step_fns(mcfg, fused=cfg.fused,
                               prefill_buckets=cfg.prefill_buckets,
                               device=self.device)
-        self._caches = transformer.init_cache(mcfg, self.schedule.rows,
-                                              cfg.max_seq, device=self.device)
+        # DTensor parameters: a pool laid out by cache_shardings
+        self._caches = transformer.init_cache(
+            mcfg, self.schedule.rows, cfg.max_seq, device=self.device,
+            mesh=transformer.params_mesh(params))
         self._slots: list[int | None] = [None] * cfg.max_slots
         self._queue: list[tuple[int, int, int]] = []   # (prio, seq, req_id)
         self._seq = itertools.count()

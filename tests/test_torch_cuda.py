@@ -1633,3 +1633,42 @@ def test_wrappers_refuse_grad_operands_on_card(cuda):
     assert before == (sops.rglru_scan.launches,
                       fa_ops.flash_attention.launches,
                       moops.moments.launches, mops.masked_ffn.launches)
+
+
+@pytest.fixture
+def card_mesh(cuda, tmp_path):
+    """A (1, 1) ("data", "model") mesh over a one-rank NCCL group,
+    destroyed after the test."""
+    from repro_torch.launch import mesh as mesh_lib
+    mesh_lib.init_world(f"file://{tmp_path}/rendezvous", 0, 1)
+    try:
+        yield mesh_lib.make_mesh((1, 1), ("data", "model"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_kernels_on_dtensors_launch_on_local_shards(cuda, card_mesh):
+    """``flash_attention`` (bf16, GQA) and ``moments`` on DTensors run the
+    hand-written kernel on the rank's local tensors: one launch each, the
+    output that of the plain-tensor call bit for bit."""
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+    from repro_torch.kernels.flash_attention import ops as flash
+    rep = (Replicate(), Replicate())
+    gen = torch.Generator().manual_seed(0)
+    q = _rand(gen, 2, 8, 96, 64).to(cuda, torch.bfloat16)
+    k = _rand(gen, 2, 2, 96, 64).to(cuda, torch.bfloat16)
+    v = _rand(gen, 2, 2, 96, 64).to(cuda, torch.bfloat16)
+    want = flash.flash_attention(q, k, v, causal=True)
+    flash.flash_attention.launches = 0
+    got = flash.flash_attention(
+        *(distribute_tensor(t, card_mesh, rep) for t in (q, k, v)),
+        causal=True)
+    assert isinstance(got, DTensor) and flash.flash_attention.launches == 1
+    assert torch.equal(got.to_local(), want)
+    s = _rand(gen, 4, 8, 1000).to(cuda)
+    want = moops.moments(s)
+    moops.moments.launches = 0
+    got = moops.moments(distribute_tensor(s, card_mesh, rep))
+    assert moops.moments.launches == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.to_local(), w)

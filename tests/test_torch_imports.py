@@ -46,7 +46,8 @@ def test_port_imports_no_jax_and_no_reference():
         "          'obs.crosscheck', 'data.pipeline', 'optim.optimizers',\n"
         "          'train.trainer', 'distributed.checkpoint', 'core.tree',\n"
         "          'distributed.sharding', 'distributed.pipeline',\n"
-        "          'launch', 'launch.mesh'):\n"
+        "          'launch', 'launch.mesh', 'launch.dryrun', 'launch.sweep',\n"
+        "          'configs.cells'):\n"
         "    assert 'repro_torch.' + n in names, names\n"
         "assert len(names) >= 60, names\n"
         "print(len(names))\n")

@@ -21,6 +21,12 @@ Scenarios:
                one step with grad_accum 2 on batch 3.
   collectives  4 ranks: pipeline_forward on a 4-stage mesh (and a ragged
                call), compressed_allreduce under a spy on all_reduce.
+  serve        4 ranks, (2, 2): each family the test listed in
+               ``families.json``, its parameters restored as DTensors
+               (``param_shardings``): prefill + 4 decode steps on the
+               tokens the test saved, and ``serve_uncertain(mesh=)``
+               per-op, under spies that record the ``flash_attention`` and
+               ``moments`` calls' operand shapes.
 """
 
 from __future__ import annotations
@@ -265,9 +271,70 @@ def scenario_collectives(rank: int, workdir: str) -> None:
                  "op": str(kw.get("op"))} for a, kw in reduces]}, f)
 
 
+def scenario_serve(rank: int, workdir: str) -> None:
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import checkpoint, sharding
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.moments import ops as moments_ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer
+    from repro_torch.serving import engine
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), device_type="cpu")
+    with open(os.path.join(workdir, "families.json")) as f:
+        families = json.load(f)
+
+    def shapes(args):
+        return [[type(t).__name__, list(t.shape)] for t in args
+                if isinstance(t, torch.Tensor)]
+
+    for arch in families:
+        cfg, model, _ = _model(arch)
+        d = os.path.join(workdir, arch)
+        specs = model.param_specs()
+        params, _ = checkpoint.restore_checkpoint(
+            d, 0, specs, shardings=sharding.param_shardings(mesh, specs))
+        io = np.load(os.path.join(d, "io.npz"))
+        toks, steps = torch.from_numpy(io["tokens"]), io["steps"]
+        n = cfg.mask_samples
+        ids = torch.arange(n).repeat_interleave(toks.shape[0] // n)
+        s = toks.shape[1]
+        with _count_calls(flash_ops, "flash_attention", []) as flash, \
+                _count_calls(moments_ops, "moments", []) as moments, \
+                mesh_lib.use_mesh(mesh):
+            logits, caches = transformer.prefill(
+                cfg, params, {"tokens": toks}, max_seq=s + len(steps),
+                mask_ids=ids)
+            out = [sharding.whole(logits)]
+            for i, tok in enumerate(steps):
+                logits, caches = transformer.decode_step(
+                    cfg, params, caches, torch.from_numpy(tok), s + i,
+                    mask_ids=ids)
+                out.append(sharding.whole(logits))
+            layouts = {f"{si}/{b}/{name}": [str(p) for p in t.placements]
+                       for si, seg in enumerate(caches)
+                       for b, c in seg.items() for name, t in c.items()
+                       if isinstance(t, DTensor)}
+            plain = [name for seg in caches for c in seg.values()
+                     for name, t in c.items() if not isinstance(t, DTensor)]
+            gen, unc, flags = engine.serve_uncertain(
+                model, params, toks[:toks.shape[0] // n],
+                engine.ServeConfig(max_new_tokens=len(steps), fused=False),
+                mesh=mesh, device="cpu")
+        if rank == 0:
+            np.savez(os.path.join(d, "sharded.npz"),
+                     logits=torch.stack(out).numpy(), gen=gen.numpy(),
+                     unc=unc.numpy(), flags=flags.numpy())
+            with open(os.path.join(d, "sharded.json"), "w") as f:
+                json.dump({"cache_layouts": layouts, "plain_leaves": plain,
+                           "flash": [shapes(a) for a, _ in flash],
+                           "moments": [shapes(a) for a, _ in moments]}, f)
+
+
 SCENARIOS = {"train": scenario_train, "elastic_a": scenario_elastic_a,
              "elastic_b": scenario_elastic_b,
-             "collectives": scenario_collectives}
+             "collectives": scenario_collectives, "serve": scenario_serve}
 
 
 def main(argv: list[str]) -> None:
