@@ -229,12 +229,25 @@ Phases, each on its own line; any failure raises and exits nonzero:
      caches (``cache_shardings``) against plain tensors: per-op and fused
      ``serve_uncertain`` and one wave of the server's traffic, launches
      equal, ms a step of each, the fused step's gathered bytes;
- 23. one JSON line with every kernel's numbers (the server's and the
+ 23. the examples (``[examples]``): each ``repro_torch.examples`` module's
+     ``main`` on the card as a user runs it, its output captured —
+     quickstart (its packed ``max|err|`` within TOL_3XTF32_REL),
+     ``train_ivim --steps 200`` (one ``moments`` launch an SNR level),
+     ``train_lm --steps 40`` for qwen2-1.5b and recurrentgemma-2b (the
+     scan forward and backward), a qwen2-1.5b run stopped after its step-50
+     checkpoint and rerun (its first two losses within TOL_RESUME of the
+     stopped run's), ``serve_uncertainty_lm`` one-shot
+     and ``--server --scan --hosts 3 --chaos --trace-out --metrics-out``
+     (tokens equal to an unfaulted router run's, the trace through
+     ``verify_obs``); each leg's seconds and launches by kernel, a zero
+     count of a kernel its path reaches failing the phase;
+ 24. one JSON line with every kernel's numbers (the server's and the
      router's launches as ``server_launches``, ``router_launches`` and
      ``router_faulted_launches``, the backbone phases' as
      ``backbone_launches`` by architecture, the training runs' as
-     ``train_launches``, the mesh phases' as ``mesh_launches``; the scan's
-     backward as ``backward_*``), then the device line.
+     ``train_launches``, the mesh phases' as ``mesh_launches``, the
+     examples' as ``examples_launches``; the scan's backward as
+     ``backward_*``), then the device line.
 
 Weights are random from ``torch.Generator`` seeds (IVIM: seed 0 with
 non-trivial BN running statistics from seed 1; LM: seed 0); the data is
@@ -3582,6 +3595,161 @@ def serve_sharded_phase(dev, reset, add_counts, world, mesh_2d) -> None:
         raise AssertionError(f"[serve_sharded] {failures}")
 
 
+def _run_main(example, argv) -> str:
+    """``example.main(argv)`` with its standard output captured; raises
+    unless it returns 0."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = example.main(argv)
+    if rc != 0:
+        raise AssertionError(f"{example.__name__}.main({argv}) -> {rc}")
+    return buf.getvalue()
+
+
+def examples_phase(dev, counters) -> dict:
+    """Phase 23: every example's ``main`` on the card as a user runs it,
+    each leg's launches by kernel (a kernel its path reaches launched zero
+    times fails the leg), the examples' own claims checked. Returns the
+    launches by kernel summed over the legs and the seconds of each."""
+    import re
+    import shutil
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.examples import (quickstart, serve_uncertainty_lm,
+                                      train_ivim, train_lm)
+    from repro_torch.ivim import data as ivim_data
+    from repro_torch.models import model as lm_model
+    from repro_torch.serving import server
+
+    work = Path(__file__).resolve().parent / "build" / "examples"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+    seconds = {}
+
+    def leg(name, fn, reaches):
+        _reset_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = _launch_counts(counters)
+        missing = [k for k in reaches if not got[k]]
+        if missing:
+            raise AssertionError(f"[examples] {name}: no launch of "
+                                 f"{missing} (launches {got})")
+        for k, n in got.items():
+            total[k] += n
+        seconds[name] = secs
+        _phase("examples", leg=name, seconds=f"{secs:.3f}",
+               launches={k: n for k, n in got.items() if n})
+        return out, got
+
+    out, _ = leg("quickstart", lambda: _run_main(quickstart, []),
+              ("masked_ffn", "fused_plan_moments", "moments"))
+    err = float(re.search(r"max\|err\| vs training form = (\S+)",
+                          out).group(1))
+    if not err <= TOL_3XTF32_REL:      # the samples' scale is ~1 (S0)
+        raise AssertionError(f"quickstart packed max|err| {err} > "
+                             f"{TOL_3XTF32_REL}")
+    _phase("examples", leg="quickstart", packed_max_abs_err=err,
+           loss=re.search(r"loss: (\S+ -> \S+)", out).group(1))
+
+    out, got = leg("train_ivim", lambda: _run_main(
+        train_ivim, ["--steps", "200"]), ("moments",))
+    if got["moments"] != len(ivim_data.SNR_LEVELS):
+        raise AssertionError(f"train_ivim: {got['moments']} moments "
+                             f"launches, one an SNR level expected")
+    gate = re.search(r"Phase-2 gate \(paper Figs. 6-7 trends\): (.*)",
+                     out).group(1)
+    _phase("examples", leg="train_ivim", gate=gate.replace(" ", "_"))
+
+    for arch, reaches in (("qwen2-1.5b", ()),
+                          ("recurrentgemma-2b", ("rglru_scan",))):
+        out, _ = leg(f"train_lm_{arch}", lambda a=arch: _run_main(
+            train_lm, ["--arch", a, "--steps", "40", "--ckpt-dir",
+                       str(work / "lm")]), reaches)
+        first, last = re.search(r"done: loss (\S+) -> (\S+);",
+                                out).groups()
+        _phase("examples", leg=f"train_lm_{arch}", loss_first=first,
+               loss_last=last, printed_ms_a_step=re.findall(
+                   r"^step +\d+  loss \S+ +(\S+) ms", out, re.M))
+
+    class Stop(Exception):
+        pass
+
+    stopped = []
+
+    def stop_after_51(rec):
+        stopped.append(rec)
+        if rec["step"] == 51:       # after the step-50 checkpoint
+            raise Stop
+
+    def stop_then_rerun():
+        resume = str(work / "resume")
+        try:
+            train_lm.run(steps=60, ckpt_dir=resume, device=dev,
+                         on_step=stop_after_51)
+        except Stop:
+            pass
+        return train_lm.run(steps=60, ckpt_dir=resume, device=dev)
+
+    rerun, _ = leg("train_lm_resume", stop_then_rerun, ())
+    got = [h["loss"] for h in rerun["history"][:2]]
+    want = [h["loss"] for h in stopped[50:52]]
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    if [h["step"] for h in rerun["history"]] != list(range(50, 60)) or \
+            not rel <= TOL_RESUME:
+        raise AssertionError(f"train_lm resumed at steps 50-51 with losses "
+                             f"{got}, the stopped run's {want}")
+    _phase("examples", leg="train_lm_resume", losses_resumed=got,
+           losses_stopped=want, bitwise=got == want)
+
+    cfg = registry.smoke_config("qwen2-1.5b", mask_samples=4)
+    fused = server.step_fns(lm_model.build_model(cfg),
+                            device=dev).fused_live()
+    lm_reaches = ("flash_attention", "moments") + (
+        ("fused_decode",) if fused else ())
+    out, _ = leg("serve_one_shot",
+                 lambda: _run_main(serve_uncertainty_lm, []), lm_reaches)
+    one_shot = re.findall(r"^req \d: tokens  (.*)$", out, re.M)
+    if len(one_shot) != 2:
+        raise AssertionError(f"serve_uncertainty_lm one-shot: {out}")
+    trace, prom = work / "trace.jsonl", work / "metrics.prom"
+    out, _ = leg("serve_router_chaos", lambda: _run_main(
+        serve_uncertainty_lm, ["--server", "--scan", "--hosts", "3",
+                               "--chaos", "--trace-out", str(trace),
+                               "--metrics-out", str(prom)]),
+        lm_reaches + ("fused_plan_moments",))
+    chaos = [[int(t) for t in line.split()] for line in
+             re.findall(r"^req \d: tokens  (.*)$", out, re.M)]
+    clean = serve_uncertainty_lm.run(server=True, hosts=3, scan=True,
+                                     device=dev)
+    want = [list(st.generated) for st in clean["requests"]]
+    if chaos != want or "deaths 1" not in out:
+        raise AssertionError(f"chaos tokens {chaos} against the unfaulted "
+                             f"router's {want}")
+    events = [json.loads(line) for line in trace.read_text().splitlines()]
+    errors = _load_verify_obs().verify_trace_events(events)
+    if errors:
+        raise AssertionError(f"the example's trace: {errors[:5]}")
+    _phase("examples", leg="serve_router_chaos", summary=re.search(
+        r"^router: (\d+/\d+ completed.*)$", out, re.M).group(1).replace(
+            " ", "_"))
+    _phase("examples", leg="serve_router_chaos", requests=len(chaos),
+           tokens_equal_unfaulted=True, trace_records=len(events),
+           metrics_lines=len(prom.read_text().splitlines()),
+           fused_decode_lowered=fused)
+    shutil.rmtree(work, ignore_errors=True)
+    _phase("examples", seconds=f"{sum(seconds.values()):.3f}",
+           launches=total)
+    return {"launches": total, "seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3984,7 +4152,10 @@ def main() -> int:
     # ---- phases 18-22: the mesh layer --------------------------------------
     meshed = mesh_phases(dev, time_ms, lm_counters)
 
-    # ---- phase 23: the kernels line, then the device line -----------------
+    # ---- phase 23: the examples --------------------------------------------
+    examples = examples_phase(dev, lm_counters)
+
+    # ---- phase 24: the kernels line, then the device line -----------------
     main_launches = {"masked_ffn": launches["per_op"][0],
                      "moments": launches["per_op"][3],
                      "fused_plan_samples": samples_launches,
@@ -4052,6 +4223,7 @@ def main() -> int:
     for rec in line:    # the training and mesh runs' launches beside each
         rec["train_launches"] = trained["launches"].get(rec["name"], 0)
         rec["mesh_launches"] = meshed["launches"].get(rec["name"], 0)
+        rec["examples_launches"] = examples["launches"].get(rec["name"], 0)
         if rec["name"] == "rglru_scan":
             bwd = trained["kernel"]
             main_bwd = bwd["train"]

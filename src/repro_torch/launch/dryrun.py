@@ -40,6 +40,21 @@ are whole), and ``--hlo-dump`` (there is no HLO). Where the reference
 names the TPU's 16 GB (``fits_16gb_*``), the result names the H100's
 80 GB (``fits_h100_80gb_analytic``).
 
+The one loop that is not traced whole is the sLSTM's time scan
+(``models.xlstm.time_scan``, S steps through DTensor's dispatch each):
+during the trace :func:`counted_scan` stands in for it, traces four steps
+and adds S - 4 copies of one step's counted forward and backward, which
+at S = 64 equals the whole loop's count to the FLOP and the byte. The
+reference adds ``(S - 1)`` times an analytic step instead
+(``_slstm_step_cost``: ``8 B D^2 / H + 12 B D`` FLOPs and ``13 B D``
+fp32 words, B the batch over the data axes). The port's step differs from
+that in three ways: it counts the recurrent product on its local operands
+(the recurrent matrices' output columns split over "model", so 1/16 of the
+FLOPs); it counts every unfused elementwise operation and the per-step
+redistributions of the state and of the step's input (which reach the
+collectives too); and in a train cell it extrapolates the backward as
+well, which the reference's HLO counts once.
+
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k \
       [--multi-pod] [--bayesian N] [--out results/...json] \
@@ -105,7 +120,8 @@ class LocalCosts(TorchDispatchMode):
     local shards, and those local operations — and the collectives DTensor
     issues — are what this mode counts. ``flops``: matrix-product FLOPs of
     the local operands; ``bytes``: inputs read plus outputs written of each
-    non-view operation; ``collectives``: output bytes by kind."""
+    non-view operation on the device (``meta``); ``collectives``: output
+    bytes by kind."""
 
     def __init__(self) -> None:
         super().__init__()
@@ -135,11 +151,114 @@ class LocalCosts(TorchDispatchMode):
             return out
         if getattr(func, "is_view", False) or name in _NO_BYTES:
             return out
+        if not any(t.device.type == "meta" for t in tree_flatten(
+                (args, kwargs, out))[0] if isinstance(t, torch.Tensor)):
+            # DTensor's own planning (redistribution costs, shard offsets)
+            # on small host tensors, cached after its first call: no
+            # device runs it
+            return out
         if packet in flop_registry:
             self.flops += int(flop_registry[packet](*args, **kwargs,
                                                     out_val=out))
         self.bytes += _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
         return out
+
+    def snapshot(self) -> tuple:
+        return self.flops, self.bytes, dict(self.collectives)
+
+    def repeat_since(self, snap: tuple, times: int) -> None:
+        """Add ``times`` more copies of what was counted since ``snap``."""
+        flops, bytes_, coll = snap
+        self.flops += times * (self.flops - flops)
+        self.bytes += times * (self.bytes - bytes_)
+        for kind, n in coll.items():
+            self.collectives[kind] += times * (self.collectives[kind] - n)
+
+
+class _Mark(torch.autograd.Function):
+    """Identity on a step's outputs whose backward first calls ``hook``:
+    the backward of a step begins there."""
+
+    @staticmethod
+    def forward(ctx, hook, *ts):
+        ctx.hook = hook
+        ctx.set_materialize_grads(False)
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.hook()
+        return (None, *grads)
+
+
+class _Fan(torch.autograd.Function):
+    """The first step of ``xs`` [B, K, ...]; its gradient goes to all K
+    steps, as a broadcast view (a dry-run has no values, only operations
+    to count, and a view moves no bytes)."""
+
+    @staticmethod
+    def forward(ctx, xs):
+        ctx.k = xs.shape[1]
+        return xs[:, 0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.unsqueeze(1)
+        return g.expand(g.shape[0], ctx.k, *g.shape[2:])
+
+
+def counted_scan(costs: LocalCosts):
+    """A stand-in for ``models.xlstm.time_scan`` that traces four steps —
+    the first, one that stands for the S - 3 after it, and the last two —
+    and adds S - 4 more copies of what the standing step counted, so an
+    S-step scan counts what S traced steps would (``tests/test_torch_launch
+    .py`` holds the two equal at S = 64).
+
+    Forward: the step's own operations. Backward: from the step's outputs
+    to the first step's, which takes in the add that joins the first
+    step's ``h`` gradient from the stack and from the standing step. The
+    last two steps stay traced, since a scan's end differs: the last step's
+    state feeds nothing, and the one before it feeds a step whose state
+    feeds nothing. The stack holds the standing step's ``h`` once and a
+    detached broadcast in the slots it stands for (so no more adds join
+    them), and every input it stands for receives its input's gradient."""
+    from repro_torch.models import xlstm
+
+    def scan(cell, weight, state, xs):
+        s = xs.shape[1]
+        if s < 4:
+            return xlstm.time_scan(cell, weight, state, xs)
+        extra = s - 4
+        # one split, not unbind's S views (S selects through DTensor's
+        # propagation): its backward concatenates as many bytes as
+        # unbind's stacks
+        first_x, mid_x, before_x, last_x = torch.split(
+            xs, [1, s - 3, 1, 1], dim=1)
+        keys = tuple(state)
+        start = []
+
+        def finish():
+            costs.repeat_since(start.pop(), extra)
+
+        first = cell(weight, first_x.squeeze(1), state)
+        first = dict(zip(keys, _Mark.apply(finish,
+                                           *(first[k] for k in keys))))
+        snap = costs.snapshot()
+        mid = cell(weight, _Fan.apply(mid_x), first)
+        costs.repeat_since(snap, extra)
+        mid = dict(zip(keys, _Mark.apply(lambda: start.append(
+            costs.snapshot()), *(mid[k] for k in keys))))
+        before_last = cell(weight, before_x.squeeze(1), mid)
+        last = cell(weight, last_x.squeeze(1), before_last)
+        # the stack as one concatenation of as many bytes, whose backward
+        # hands out five views where a stack's hands out S
+        pad = mid["h"].detach()[:, None]
+        hs = [first["h"][:, None], mid["h"][:, None],
+              pad.expand(pad.shape[0], extra, *pad.shape[2:]),
+              before_last["h"][:, None], last["h"][:, None]]
+        return torch.cat(hs, 1), last
+
+    return scan
 
 
 @contextlib.contextmanager
@@ -243,6 +362,19 @@ def _meta_tree(shapes):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
+@contextlib.contextmanager
+def _counted_scans(costs: LocalCosts):
+    """``models.xlstm.time_scan`` replaced by :func:`counted_scan` for the
+    block, restored after it."""
+    from repro_torch.models import xlstm
+    real = xlstm.time_scan
+    xlstm.time_scan = counted_scan(costs)
+    try:
+        yield
+    finally:
+        xlstm.time_scan = real
+
+
 def trace_cell(arch: str, shape_name: str, mesh, *, bayesian: int = 0,
                overrides: dict | None = None) -> tuple[dict, LocalCosts]:
     """Build one cell on ``mesh`` as ``meta`` DTensors and run its step
@@ -257,6 +389,12 @@ def trace_cell(arch: str, shape_name: str, mesh, *, bayesian: int = 0,
                                     * bayesian)
     model = build_model(cfg)
     costs = LocalCosts()
+    with _counted_scans(costs):
+        return _trace(model, cfg, shape, mesh, costs)
+
+
+def _trace(model, cfg, shape, mesh, costs: LocalCosts
+           ) -> tuple[dict, LocalCosts]:
     meta: dict = {"cfg": cfg, "shape": shape}
     if shape.kind == "train":
         opt_cfg = pick_optimizer(cfg)

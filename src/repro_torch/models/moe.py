@@ -77,6 +77,12 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _expert_major(t: torch.Tensor) -> torch.Tensor:
+    """[G, E, C, X] -> [E, G*C, X], contiguous."""
+    g, e, c, x = t.shape
+    return t.transpose(0, 1).contiguous().reshape(e, g * c, x)
+
+
 def moe_apply(p: Params, x: torch.Tensor, cfg,
               mask_ids: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -120,34 +126,42 @@ def moe_apply(p: Params, x: torch.Tensor, cfg,
     combine = (gate[..., None] * slot_oh).sum(2)                # fp32
 
     # ---- dispatch -> expert FFN -> combine --------------------------------
+    # Each product is one bmm over contiguous operands: dispatch and combine
+    # batched over the groups ([G, E*C, *]), the experts over the experts
+    # ([E, G*C, *]), with one transpose between the two layouts. (As
+    # einsums they reshaped permuted operands, and DTensor, whose
+    # redistribution keeps its input's global strides while the shard it
+    # returns is contiguous, viewed a shard by strides it did not have.)
     # Expert-parallel activation layout (the reference's hints; identity
     # without a mesh): slot tensors shard the expert dim over "model" and
     # the group dim over the batch axes — unless the groups nest inside
     # sequence shards (moe_local_groups).
     ep = None if cfg.moe_local_groups else ("batch", "model", None, None)
-    xe = torch.einsum("gtec,gtd->gecd", dispatch, xt)           # [G,E,C,D]
+    to_slots = dispatch.reshape(n_groups, group, e * cap).transpose(1, 2)
+    xe = torch.bmm(to_slots, xt).reshape(n_groups, e, cap, d)   # [G,E,C,D]
     xe = layers.constrain(xe, ep) if ep else xe
+    xe = _expert_major(xe)                                      # [E,GC,D]
     act = plan_lib.activation_fn("silu" if cfg.activation == "silu"
                                  else "gelu")
-    h = act(torch.einsum("gecd,edf->gecf", xe, p["weg"])) * \
-        torch.einsum("gecd,edf->gecf", xe, p["weu"])            # [G,E,C,F]
-    h = layers.constrain(h, ep) if ep else h
+    h = act(torch.bmm(xe, p["weg"])) * torch.bmm(xe, p["weu"])  # [E,GC,F]
+    h = layers.constrain(h, ("model", "batch", None)) if ep else h
     if mask_ids is not None and "masks" in p:
         # route each token's mask id through the same dispatch
         mid = mask_ids.to(x.dtype)
-        mid = mid[:, None].expand(b, s).reshape(n_groups, group)
-        slot_mid = torch.einsum("gtec,gt->gec", dispatch, mid)  # [G,E,C]
+        mid = mid[:, None].expand(b, s).reshape(n_groups, group, 1)
+        slot_mid = torch.bmm(to_slots, mid).reshape(n_groups, e, cap, 1)
+        slot_mid = _expert_major(slot_mid)[..., 0]              # [E,GC]
         # the gather as a one-hot product: the same values (one term a
         # sum), and a backward that is a matrix product, deterministic,
         # where an indexed gather's backward accumulates in any order
         pick = torch.nn.functional.one_hot(
             slot_mid.long(), p["masks"].shape[0]).to(p["masks"].dtype)
-        h = h * (pick @ p["masks"])                             # [G,E,C,F]
-    # contiguous: DTensor's einsum views the local shard as the global
-    # layout's strides would allow, which the mask product's need not
-    ye = torch.einsum("gecf,efd->gecd", h.contiguous(), p["wed"])  # [G,E,C,D]
+        h = h * (pick @ p["masks"])                             # [E,GC,F]
+    ye = torch.bmm(h, p["wed"]).reshape(e, n_groups, cap, d)
+    ye = ye.transpose(0, 1).contiguous()                        # [G,E,C,D]
     ye = layers.constrain(ye, ep) if ep else ye
-    y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ye)
+    from_slots = combine.to(x.dtype).reshape(n_groups, group, e * cap)
+    y = torch.bmm(from_slots, ye.reshape(n_groups, e * cap, d))  # [G,T,D]
 
     # ---- aux load-balancing loss -------------------------------------------
     f_e = (onehot[..., 0, :] if k == 1 else onehot.sum(2)).mean(1)

@@ -39,7 +39,7 @@ __all__ = ["NEG", "mlstm_parallel", "mlstm_step",
            "mlstm_block_init", "mlstm_block_apply", "mlstm_block_step",
            "mlstm_state_init", "mlstm_state_specs",
            "slstm_block_init", "slstm_block_apply", "slstm_block_step",
-           "slstm_state_init", "slstm_state_specs"]
+           "slstm_state_init", "slstm_state_specs", "time_scan"]
 
 #: The stabiliser ``m``'s empty state: the first step's max takes its gate.
 NEG = -1e30
@@ -274,14 +274,15 @@ def slstm_state_init(batch: int, cfg, dtype, device=None) -> Params:
     return _state_init(slstm_state_specs(batch, cfg, dtype), device)
 
 
-def _slstm_cell(p: Params, pre_x: torch.Tensor, state: Params, cfg):
-    """One timestep. pre_x [B, 4D] (input preactivations); state fp32."""
+def _slstm_cell(rz: torch.Tensor, pre_x: torch.Tensor, state: Params, cfg):
+    """One timestep. rz the recurrent matrices ``rzifo``; pre_x [B, 4D]
+    (input preactivations); state fp32."""
     b = pre_x.shape[0]
     d = cfg.d_model
     h = cfg.n_heads
     hp = layers.split_fit(state["h"], 1, h).reshape(b, h, d // h).to(
-        p["rzifo"].dtype)
-    rec = torch.einsum("bhd,hde->bhe", hp, p["rzifo"]).reshape(b, 4 * d)
+        rz.dtype)
+    rec = torch.einsum("bhd,hde->bhe", hp, rz).reshape(b, 4 * d)
     pre = (pre_x + rec).float()
     z, i, f, o = torch.split(pre, d, -1)
     # DTensor has no rule for log_sigmoid's backward: the local shards
@@ -295,17 +296,30 @@ def _slstm_cell(p: Params, pre_x: torch.Tensor, state: Params, cfg):
     return {"c": c_new, "n": n_new, "h": h_new, "m": m_new}
 
 
+def time_scan(cell, weight: torch.Tensor, state: Params, xs: torch.Tensor
+              ) -> tuple[torch.Tensor, Params]:
+    """``cell(weight, x_t, state) -> state`` stepped over dim 1 of ``xs``
+    from ``state``: (every step's ``h`` stacked on dim 1, the last state).
+    The counterpart of the reference's ``lax.scan``, and one helper so that
+    ``launch.dryrun`` can count one step and multiply. ``unbind`` hands out
+    the steps' inputs: its backward is one stack, where indexing's would
+    write a zero [B, S, 4D] gradient for every step."""
+    hs = []
+    for x_t in xs.unbind(1):
+        state = cell(weight, x_t, state)
+        hs.append(state["h"])
+    return torch.stack(hs, 1), state
+
+
 def slstm_block_apply(p: Params, x: torch.Tensor, cfg, mask_ids=None
                       ) -> tuple[torch.Tensor, Params]:
     """Prefill: the cell stepped over time. x [B,S,D]."""
     xn = layers.norm_apply(p["norm"], x, "rmsnorm")
     pre = layers.dense(p["wzifo"], xn)                  # [B,S,4D]
     state = slstm_state_init(x.shape[0], cfg, x.dtype, x.device)
-    hs = []
-    for t in range(x.shape[1]):
-        state = _slstm_cell(p, pre[:, t], state, cfg)
-        hs.append(state["h"])
-    hs = torch.stack(hs, 1).to(x.dtype)                 # [B,S,D]
+    hs, state = time_scan(lambda rz, x_t, st: _slstm_cell(rz, x_t, st, cfg),
+                          p["rzifo"], state, pre)
+    hs = hs.to(x.dtype)                                 # [B,S,D]
     hs = layers.norm_apply(p["hnorm"], hs, "rmsnorm")
     if mask_ids is not None and "masks" in p:
         hs = hs * p["masks"][mask_ids][:, None, :]
@@ -317,7 +331,7 @@ def slstm_block_step(p: Params, x: torch.Tensor, state: Params, cfg,
     """Decode: x [B,D] -> (y [B,D], new state)."""
     xn = layers.norm_apply(p["norm"], x[:, None, :], "rmsnorm")[:, 0]
     pre = layers.dense(p["wzifo"], xn)
-    state = _slstm_cell(p, pre, state, cfg)
+    state = _slstm_cell(p["rzifo"], pre, state, cfg)
     hs = layers.norm_apply(p["hnorm"], state["h"].to(x.dtype), "rmsnorm")
     if mask_ids is not None and "masks" in p:
         hs = hs * p["masks"][mask_ids]

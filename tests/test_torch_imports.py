@@ -47,9 +47,17 @@ def test_port_imports_no_jax_and_no_reference():
         "          'train.trainer', 'distributed.checkpoint', 'core.tree',\n"
         "          'distributed.sharding', 'distributed.pipeline',\n"
         "          'launch', 'launch.mesh', 'launch.dryrun', 'launch.sweep',\n"
-        "          'configs.cells'):\n"
+        "          'configs.cells', 'analysis', 'analysis.rules',\n"
+        "          'analysis.checker', 'analysis.project', 'analysis.cli',\n"
+        "          'examples', 'examples.quickstart', 'examples.train_ivim',\n"
+        "          'examples.train_lm', 'examples.serve_uncertainty_lm'):\n"
         "    assert 'repro_torch.' + n in names, names\n"
         "assert len(names) >= 60, names\n"
+        "import torch\n"
+        "from repro_torch.kernels import _build\n"
+        "assert not _build._LIBS and not _build._BOUND, 'built at import'\n"
+        "assert not torch.cuda.is_initialized(), 'CUDA touched at import'\n"
+        "assert 'triton' not in sys.modules, 'triton imported at import'\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(SRC),
                          capture_output=True, text=True, timeout=120,

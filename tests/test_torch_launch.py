@@ -11,10 +11,12 @@ host-device count at import), without lowering anything: its
 trees.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -25,6 +27,7 @@ from repro.configs import cells as j_cells
 from repro_torch.configs import cells as t_cells
 from repro_torch.launch import dryrun, sweep
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import xlstm
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 #: tests/test_launch.py's width-reduced qwen2 overrides.
@@ -172,3 +175,72 @@ def test_sweep_writes_a_skip_record(tmp_path):
         assert json.load(f) == got == {"arch": cell.arch_id,
                                        "shape": cell.shape.name,
                                        "skipped": cell.skip}
+
+
+def test_arctic_train_cell_traces_at_published_widths():
+    """arctic-480b's ``train_4k`` at its published widths, cut to 1 layer
+    (the smallest cut that raised before the MoE products were written as
+    ``bmm``s over contiguous operands: DTensor's backward viewed a permuted
+    local shard, [8, 2048, 10, 1, 7168], by its global layout's strides):
+    it traces, and its record's cost, collectives and roofline are
+    filled."""
+    r = dryrun.run_cell("arctic-480b", "train_4k", overrides={"n_layers": 1})
+    assert not torch.distributed.is_initialized()
+    assert r["cost"]["hlo_flops_per_device"] > \
+        r["roofline"]["model_flops_per_device"] / 4
+    assert r["cost"]["hlo_bytes_per_device"] > 0
+    assert r["collectives"]["all-gather"] > 0
+    assert r["collectives"]["all-reduce"] > 0
+    assert r["roofline"]["dominant"] in ("compute", "memory", "collective")
+    assert r["roofline"]["bound_s"] > 0
+
+
+#: xlstm-350m at its published widths, one layer, and that layer an sLSTM.
+ONE_SLSTM = {"n_layers": 1, "slstm_every": 1}
+
+
+@pytest.mark.parametrize("shape,layers", [
+    ("train_4k", ONE_SLSTM), ("prefill_32k", ONE_SLSTM),
+    ("train_4k", {"n_layers": 2, "slstm_every": 2})])
+def test_slstm_count_one_step_equals_the_full_loop(monkeypatch, shape,
+                                                   layers):
+    """At S = 64 the dry-run's sLSTM scan counted from one step
+    (``dryrun.counted_scan``) counts what the whole loop counts: the same
+    FLOPs, bytes and collective bytes, forward and backward. A first
+    trace warms DTensor's caches, so both compared traces see the same."""
+    monkeypatch.setitem(dryrun.SHAPES, shape, dataclasses.replace(
+        dryrun.SHAPES[shape], seq_len=64))
+
+    def trace(whole_loop):
+        with monkeypatch.context() as m:
+            if whole_loop:      # the stand-in hands back the real loop
+                m.setattr(dryrun, "counted_scan",
+                          lambda costs: xlstm.time_scan)
+            _, c = dryrun.trace_cell("xlstm-350m", shape, mesh,
+                                     overrides=layers)
+        return c.flops, c.bytes, c.collectives
+
+    with dryrun.fake_world(256):
+        mesh = mesh_lib.make_production_mesh(device_type="cpu")
+        trace(False)
+        counted, whole = trace(False), trace(True)
+    assert counted == whole
+    assert counted[0] > 0 and counted[1] > 0
+
+
+#: The xlstm-350m ``train_4k`` trace's limit on this host, against the
+#: whole loop's > 900 s for 24 layers before the scan counted one step
+#: (about 0.1 s a step and layer: more than 300 s for the one layer here).
+XLSTM_TRACE_LIMIT_S = 120.0
+
+
+def test_xlstm_train_cell_traces_within_its_limit():
+    """xlstm-350m ``train_4k`` at its published widths and full sequence,
+    cut to its one sLSTM layer: the trace ends within
+    :data:`XLSTM_TRACE_LIMIT_S` (about 6 s alone on an 8-core host)."""
+    t0 = time.perf_counter()
+    r = dryrun.run_cell("xlstm-350m", "train_4k", overrides=ONE_SLSTM)
+    seconds = time.perf_counter() - t0
+    assert seconds < XLSTM_TRACE_LIMIT_S, seconds
+    assert r["cost"]["hlo_flops_per_device"] > 0
+    assert sum(r["collectives"].values()) > 0
