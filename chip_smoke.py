@@ -153,7 +153,7 @@ Phases, each on its own line; any failure raises and exits nonzero:
      server's shapes (1, 3 and 8 of 8 slots active, the rest at pos -1);
      4 fp32 requests whose tokens must equal the one-shot
      ``serve_uncertain``'s (rel-unc within 1e-3); one traced run that must
-     pass ``benchmarks/verify_obs.verify_trace_events``; and a
+     pass ``repro_torch.obs.verify.verify_trace_events``; and a
      recurrentgemma-2b pool (bf16, 26 layers, per-op, 2 slots, 4 requests
      of 8 new tokens, the later ones arriving mid-decode) with its
      ``rglru_scan``/``flash_attention`` launches and every released slot's
@@ -167,7 +167,7 @@ Phases, each on its own line; any failure raises and exits nonzero:
      remesh and the scan failed over; router steps, ms a router step,
      decode tokens/s, TTFT in router steps, recovery steps, the share of
      bf16 tokens equal to the unfaulted run and launches by kernel; the
-     faulted run's trace through ``verify_obs`` (``[router_trace]``); and
+     faulted run's trace through ``obs.verify`` (``[router_trace]``); and
      ``[router_agreement]``: fp32, 4 requests, host 1 killed mid-decode,
      tokens equal to one ``BayesianLMServer``'s, rel-unc within rtol 1e-4
      / atol 1e-5;
@@ -239,7 +239,7 @@ Phases, each on its own line; any failure raises and exits nonzero:
      stopped run's), ``serve_uncertainty_lm`` one-shot
      and ``--server --scan --hosts 3 --chaos --trace-out --metrics-out``
      (tokens equal to an unfaulted router run's, the trace through
-     ``verify_obs``); each leg's seconds and launches by kernel, a zero
+     ``obs.verify``); each leg's seconds and launches by kernel, a zero
      count of a kernel its path reaches failing the phase;
  24. one JSON line with every kernel's numbers (the server's and the
      router's launches as ``server_launches``, ``router_launches`` and
@@ -1233,17 +1233,6 @@ def _step_builds() -> float:
     return obs_registry.REGISTRY.value("step_builds_total")
 
 
-def _load_verify_obs():
-    """The repository's trace verifier (benchmarks/verify_obs.py), loaded by
-    path: its trace checks import nothing but the standard library."""
-    import importlib.util
-    path = Path(__file__).resolve().parent / "benchmarks" / "verify_obs.py"
-    spec = importlib.util.spec_from_file_location("verify_obs", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def server_traffic(vocab: int):
     """The server and router phases' traffic: ``SRV_REQUESTS`` prompts of
     ``SRV_MIN_PROMPT``-``LM_PROMPT`` tokens with ``SRV_MIN_NEW``-``LM_NEW``
@@ -1279,6 +1268,7 @@ def server_phases(dev, time_ms, bound, nbytes, counters, scan_plan,
     from repro_torch.obs import export as obs_export
     from repro_torch.obs import registry as obs_registry
     from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs import verify as obs_verify
     from repro_torch.serving import engine, server
 
     def fallbacks():
@@ -1624,7 +1614,7 @@ def server_phases(dev, time_ms, bound, nbytes, counters, scan_plan,
     tsrv.run()
     obs_trace.TRACER.disable()
     events = obs_trace.TRACER.events()
-    errors = _load_verify_obs().verify_trace_events(events)
+    errors = obs_verify.verify_trace_events(events)
     kinds = collections.Counter(e["name"] for e in events)
     exposition = obs_export.parse_exposition(obs_export.prometheus_text())
     if errors or not {"enqueue", "admit", "prefill", "step", "decode",
@@ -1715,6 +1705,7 @@ def router_phases(dev, counters, scan_plan, volume) -> dict:
     from repro_torch.configs import registry
     from repro_torch.models import model as lm_model
     from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs import verify as obs_verify
     from repro_torch.serving import engine, router as router_lib, server
     from repro_torch.serving.faults import FaultEvent, FaultPlan
 
@@ -1860,8 +1851,8 @@ def router_phases(dev, counters, scan_plan, volume) -> dict:
            scan_home=scan_home, killed_hosts=sorted(killed),
            tokens_equal_share_vs_unfaulted=f"{same:.4f}", **frec)
 
-    # ---- the trace of the faulted run through the repository's verifier
-    errors = _load_verify_obs().verify_trace_events(events)
+    # ---- the trace of the faulted run through the port's verifier
+    errors = obs_verify.verify_trace_events(events)
     kinds = {}
     for e in events:
         kinds[e["name"]] = kinds.get(e["name"], 0) + 1
@@ -3622,6 +3613,7 @@ def examples_phase(dev, counters) -> dict:
                                       train_ivim, train_lm)
     from repro_torch.ivim import data as ivim_data
     from repro_torch.models import model as lm_model
+    from repro_torch.obs import verify as obs_verify
     from repro_torch.serving import server
 
     work = Path(__file__).resolve().parent / "build" / "examples"
@@ -3734,7 +3726,7 @@ def examples_phase(dev, counters) -> dict:
         raise AssertionError(f"chaos tokens {chaos} against the unfaulted "
                              f"router's {want}")
     events = [json.loads(line) for line in trace.read_text().splitlines()]
-    errors = _load_verify_obs().verify_trace_events(events)
+    errors = obs_verify.verify_trace_events(events)
     if errors:
         raise AssertionError(f"the example's trace: {errors[:5]}")
     _phase("examples", leg="serve_router_chaos", summary=re.search(

@@ -30,7 +30,7 @@ tokens come back identical anyway.
 
 ``--trace-out`` (with ``--server``) switches on span tracing
 (``obs.trace``) and writes the request-lifecycle log as JSONL, which the
-repository's trace verifier (``benchmarks/verify_obs.py``) reads;
+port's trace verifier (``python -m repro_torch.obs.verify``) reads;
 ``--metrics-out`` writes the telemetry registry as Prometheus text.
 
 On the card the prefill runs the ``flash_attention`` kernel, each
@@ -235,7 +235,7 @@ def _print_pool(args, r) -> None:
         from repro_torch.obs import trace as obs_trace
         n = obs_trace.TRACER.export_jsonl(args.trace_out)
         print(f"\nwrote {n} trace records -> {args.trace_out}  "
-              f"(verify: python -m benchmarks.verify_obs "
+              f"(verify: python -m repro_torch.obs.verify "
               f"--trace {args.trace_out})")
     if args.metrics_out:
         from repro_torch.obs import export as obs_export

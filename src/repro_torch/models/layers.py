@@ -30,14 +30,14 @@ from repro_torch.launch import mesh as mesh_lib
 
 Params = dict[str, Any]
 
-__all__ = ["resolve_spec", "constrain", "local_pointwise", "gather_dim",
-           "split_fit", "dtensor_scope", "axis_size", "dense_init", "dense",
-           "norm_init", "norm_apply", "rope_cos_sin", "mrope_cos_sin", "apply_rope",
-           "attn_init", "attention_full", "attention_chunked",
-           "attention_banded", "attention_decode", "kv_store_dtype",
-           "quantize_kv", "kv_cache_shapes", "init_kv_cache",
-           "kv_cache_update", "ffn_init", "ffn_apply", "mask_table",
-           "embed_init", "embed_tokens", "lm_head"]
+__all__ = ["resolve_spec", "constrain", "einsum", "reduced", "local_pointwise",
+           "gather_dim", "split_fit", "dtensor_scope", "axis_size",
+           "dense_init", "dense", "norm_init", "norm_apply", "rope_cos_sin",
+           "mrope_cos_sin", "apply_rope", "attn_init", "attention_full",
+           "attention_chunked", "attention_banded", "attention_decode",
+           "kv_store_dtype", "quantize_kv", "kv_cache_shapes",
+           "init_kv_cache", "kv_cache_update", "ffn_init", "ffn_apply",
+           "mask_table", "embed_init", "embed_tokens", "lm_head"]
 
 
 # ---------------------------------------------------------------------------
@@ -66,20 +66,34 @@ def resolve_spec(spec: tuple, shape: tuple, mesh_shape: dict) -> tuple:
     return tuple(resolved)
 
 
-def constrain(x: torch.Tensor, spec: tuple) -> torch.Tensor:
+def constrain(x: torch.Tensor, spec: tuple, *, exact: bool = False
+              ) -> torch.Tensor:
     """``x`` laid out as ``spec`` says (:func:`resolve_spec` against the
     ambient mesh): a DTensor is redistributed (differentiably); a plain
     tensor, no ambient mesh, or a spec that resolves to no axis at all
-    leave ``x`` as it is — the reference with no mesh."""
+    leave ``x`` as it is — the reference with no mesh. With ``exact``, a
+    spec that resolves to no axis lays ``x`` out too (whole on every
+    rank, partial sums reduced)."""
     from torch.distributed.tensor import DTensor
     mesh = mesh_lib.get_mesh()
     if mesh is None or not isinstance(x, DTensor):
         return x
     resolved = resolve_spec(spec, tuple(x.shape), mesh_lib.mesh_shape(mesh))
-    if all(r is None for r in resolved):
+    if all(r is None for r in resolved) and not exact:
         return x
     return x.redistribute(x.device_mesh,
                           sharding.to_placements(resolved, x.device_mesh))
+
+
+def reduced(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with a DTensor's partial sums reduced (its shards kept);
+    anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or not any(
+            d.is_partial() for d in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if d.is_partial() else d for d in x.placements))
 
 
 def local_pointwise(fn, x: torch.Tensor) -> torch.Tensor:
@@ -87,14 +101,102 @@ def local_pointwise(fn, x: torch.Tensor) -> torch.Tensor:
     each rank's local shard (a partial sum reduced first), for the
     elementwise ops DTensor has no sharding rule for (``log_sigmoid``'s
     backward)."""
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return fn(x)
     from torch.distributed.tensor.experimental import local_map
-    pl = tuple(Replicate() if d.is_partial() else d for d in x.placements)
-    x = x.redistribute(x.device_mesh, pl)
-    return local_map(fn, out_placements=(pl,), in_placements=(pl,),
+    x = reduced(x)
+    return local_map(fn, out_placements=(x.placements,),
+                     in_placements=(x.placements,),
                      device_mesh=x.device_mesh)(x)
+
+
+def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, *operands)``. Where a DTensor's shards already
+    line up for the product (:func:`_lined_up`), each rank runs it on its
+    local shards (``local_map``) and the output's layout is stated: left
+    to DTensor, the product's strategy is searched over the flattened
+    batch dims, which takes minutes on the (2, 16, 16) mesh and may shard
+    the flat dim in a way its unflatten cannot give. Otherwise DTensor
+    chooses, as it did. Plain tensors take ``torch.einsum`` itself, so
+    their bits are unchanged, and so are a (1, 1) mesh's."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not any(isinstance(t, DTensor) for t in operands):
+        return torch.einsum(eq, *operands)
+    mesh = next(t.device_mesh for t in operands if isinstance(t, DTensor))
+    ops = tuple(t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+        for t in operands)
+    layout = _lined_up(eq, ops)
+    if layout is None:
+        return torch.einsum(eq, *operands)
+    in_pl, grad_pl, out_pl = layout
+    from torch.distributed.tensor.experimental import local_map
+    ops = tuple(t.redistribute(mesh, pl) for t, pl in zip(ops, in_pl))
+    return local_map(lambda *ts: torch.einsum(eq, *ts),
+                     out_placements=(out_pl,), in_placements=in_pl,
+                     in_grad_placements=grad_pl, device_mesh=mesh)(*ops)
+
+
+def _lined_up(eq: str, ops: tuple) -> tuple | None:
+    """The local layout of ``einsum(eq, *ops)`` on DTensors ``ops``: (the
+    operands' placements, their gradients', the output's), or None where
+    the shards do not line up. On each mesh dim, either
+
+    * every operand is whole or sharded on one and the same subscript
+      ``l`` (an operand holding ``l`` whole takes its slice, no
+      collective): the output is sharded on ``l``, or a partial sum where
+      ``l`` is summed out; an operand without ``l`` gets a partial
+      gradient; or
+    * one operand is a partial sum and the rest are whole: the product is
+      linear in it, so the output is a partial sum and the whole
+      operands' gradients are partial.
+
+    Each sharded subscript's size must divide evenly over its shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    ins, out = eq.replace(" ", "").split("->")
+    subs = ins.split(",")
+    if "." in eq or any(len(set(s)) < len(s) for s in subs):
+        return None
+    mesh = ops[0].device_mesh
+    sizes = {c: n for s, t in zip(subs, ops) for c, n in zip(s, t.shape)}
+    shards = dict.fromkeys(sizes, 1)
+    in_pl: list[list] = [[] for _ in ops]
+    grad_pl: list[list] = [[] for _ in ops]
+    out_pl: list = []
+    for i in range(mesh.ndim):
+        pls = [t.placements[i] for t in ops]
+        if any(type(p) not in (Shard, Replicate, Partial) for p in pls):
+            return None
+        partial = [j for j, p in enumerate(pls) if p.is_partial()]
+        labels = {subs[j][p.dim] for j, p in enumerate(pls) if p.is_shard()}
+        if partial:
+            if (len(partial) > 1 or labels
+                    or pls[partial[0]].reduce_op != "sum"):
+                return None
+            for j, p in enumerate(pls):
+                in_pl[j].append(p)
+                grad_pl[j].append(Replicate() if p.is_partial() else Partial())
+            out_pl.append(Partial())
+            continue
+        if len(labels) > 1:
+            return None
+        lab = labels.pop() if labels else None
+        if lab is not None:
+            shards[lab] *= mesh.size(i)
+        for j, s in enumerate(subs):
+            if lab is not None and lab in s:
+                in_pl[j].append(Shard(s.index(lab)))
+                grad_pl[j].append(Shard(s.index(lab)))
+            else:
+                in_pl[j].append(Replicate())
+                grad_pl[j].append(Replicate() if lab is None else Partial())
+        out_pl.append(Replicate() if lab is None else
+                      Shard(out.index(lab)) if lab in out else Partial())
+    if any(sizes[c] % n for c, n in shards.items()):
+        return None
+    return (tuple(map(tuple, in_pl)), tuple(map(tuple, grad_pl)),
+            tuple(out_pl))
 
 
 def gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -305,14 +407,14 @@ def _grouped_scores(q: torch.Tensor, k: torch.Tensor,
     b, h, sq, dh = q.shape
     hkv = k.shape[1]
     qg = split_fit(q, 1, hkv).reshape(b, hkv, h // hkv, sq, dh)
-    out = torch.einsum("bkgqd,bksd->bkgqs", qg.float(), k.float())
+    out = einsum("bkgqd,bksd->bkgqs", qg.float(), k.float())
     return out if scores_f32 else out.to(q.dtype)
 
 
 def _grouped_combine(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """p [B,Hkv,G,Sq,Sk] x v [B,Hkv,Sk,dh] -> [B,H,Sq,dh] in v's dtype."""
     b, hkv, g, sq, _ = p.shape
-    out = torch.einsum("bkgqs,bksd->bkgqd", p.to(v.dtype), v)
+    out = einsum("bkgqs,bksd->bkgqd", p.to(v.dtype), v)
     return out.reshape(b, hkv * g, sq, -1)
 
 

@@ -73,18 +73,24 @@ def _mlstm_chunk(q, k, v, igate, fgate, carry, *, eps=1e-6):
 
     qf, kf, vf = q.float(), k.float(), v.float()
 
-    s = torch.einsum("bhqd,bhtd->bhqt", qf, kf)                  # [B,H,C,C]
+    # on a mesh, dh is split over "model": the scores [B,H,C,C] are partial
+    # sums, reduced here so that the products below keep v's split, and
+    # the carry C is split over its first dh (v whole in its update)
+    s = layers.reduced(layers.einsum("bhqd,bhtd->bhqt", qf, kf))
     cc = q.shape[2]
     tri = torch.tril(torch.ones((cc, cc), dtype=torch.bool,
                                 device=q.device))
     d_w = torch.where(tri, torch.exp(a[:, :, None, :] - m[..., None]), 0.0)
     sw = s * d_w                                                 # weighted
-    num_intra = torch.einsum("bhqt,bhtd->bhqd", sw, vf)
+    num_intra = layers.einsum("bhqt,bhtd->bhqd", sw, vf)
     den_intra = sw.sum(-1)                                       # [B,H,C]
 
     c_j = torch.exp(m_state[..., None] - m)                      # [B,H,C]
-    num_inter = torch.einsum("bhqd,bhde->bhqe", qf, c_state) * c_j[..., None]
-    den_inter = torch.einsum("bhqd,bhd->bhq", qf, n_state) * c_j
+    num_inter = layers.constrain(
+        layers.einsum("bhqd,bhde->bhqe", qf, c_state),
+        ("batch", None, None, "model")) * c_j[..., None]
+    den_inter = layers.reduced(
+        layers.einsum("bhqd,bhd->bhq", qf, n_state)) * c_j
 
     m_star = fc + m
     den = torch.maximum((den_intra + den_inter).abs(),
@@ -96,9 +102,10 @@ def _mlstm_chunk(q, k, v, igate, fgate, carry, *, eps=1e-6):
     w_t = torch.exp(a - m_last[..., None])                       # [B,H,C]
     decay = torch.exp(m_state - m_last)                          # [B,H]
     c_new = (decay[..., None, None] * c_state
-             + torch.einsum("bht,bhtd,bhte->bhde", w_t, kf, vf))
-    n_new = decay[..., None] * n_state + torch.einsum("bht,bhtd->bhd",
-                                                      w_t, kf)
+             + layers.einsum("bht,bhtd,bhte->bhde", w_t, kf,
+                             layers.gather_dim(vf, 3)))
+    n_new = decay[..., None] * n_state + layers.einsum("bht,bhtd->bhd",
+                                                       w_t, kf)
     m_new = fc[..., -1] + m_last
     return h, (c_new, n_new, m_new)
 
@@ -119,19 +126,23 @@ def mlstm_parallel(q, k, v, igate, fgate, carry, chunk: int):
 
 
 def mlstm_step(q, k, v, igate, fgate, carry, *, eps=1e-6):
-    """O(1) decode step. q/k/v [B,H,dh], gates [B,H]."""
+    """O(1) decode step. q/k/v [B,H,dh], gates [B,H]. On a mesh the state
+    keeps its cache layout: C split over its second dh, n over dh; q and
+    k are made whole over dh, so that both products need no collective."""
     c_state, n_state, m_state = carry
     lf = F.logsigmoid(fgate.float())
     ig = igate.float()
     m_new = torch.maximum(lf + m_state, ig)
     fw = torch.exp(lf + m_state - m_new)
     iw = torch.exp(ig - m_new)
-    kf, vf, qf = k.float(), v.float(), q.float()
+    kf = layers.constrain(k.float(), ("batch", None, None), exact=True)
+    vf = layers.constrain(v.float(), ("batch", None, "model"), exact=True)
+    qf = layers.constrain(q.float(), ("batch", None, None), exact=True)
     c_new = (fw[..., None, None] * c_state
              + iw[..., None, None] * kf[..., :, None] * vf[..., None, :])
     n_new = fw[..., None] * n_state + iw[..., None] * kf
-    num = torch.einsum("bhd,bhde->bhe", qf, c_new)
-    den = torch.maximum(torch.einsum("bhd,bhd->bh", qf, n_new).abs(),
+    num = layers.einsum("bhd,bhde->bhe", qf, c_new)
+    den = torch.maximum(layers.einsum("bhd,bhd->bh", qf, n_new).abs(),
                         torch.exp(-m_new)) + eps
     return num / den[..., None], (c_new, n_new, m_new)
 
@@ -175,9 +186,10 @@ def _mlstm_qkv(p: Params, x: torch.Tensor, cfg):
     h = cfg.n_heads
     z = layers.dense(p["wu"], x)                        # [B,S,pd]
     zh = layers.split_fit(z, 2, h).reshape(b, s, h, -1).transpose(1, 2)
-    q = torch.einsum("bhsd,hde->bhse", zh, p["wq"])
-    k = torch.einsum("bhsd,hde->bhse", zh, p["wk"]) / math.sqrt(zh.shape[-1])
-    v = torch.einsum("bhsd,hde->bhse", zh, p["wv"])
+    q = layers.einsum("bhsd,hde->bhse", zh, p["wq"])
+    k = layers.einsum("bhsd,hde->bhse", zh, p["wk"]) / math.sqrt(
+        zh.shape[-1])
+    v = layers.einsum("bhsd,hde->bhse", zh, p["wv"])
     gates = layers.dense(p["wif"], x)                   # [B,S,2H]
     ig = gates[..., :h].transpose(1, 2)                 # [B,H,S]
     fg = gates[..., h:].transpose(1, 2) + 3.0           # forget bias -> ~1
@@ -186,7 +198,12 @@ def _mlstm_qkv(p: Params, x: torch.Tensor, cfg):
 
 def _mlstm_out(p: Params, x, h_cell, cfg, mask_ids):
     b, hh, s, pdh = h_cell.shape
-    hm = h_cell.transpose(1, 2).reshape(b, s, hh * pdh)
+    # on a mesh, h_cell's dh is split over "model": merged with the heads
+    # it would be a strided split, which DTensor plans every op of the norm
+    # over for minutes on a 3-D mesh; made whole first, the merged width
+    # takes the gate's split over "model" (a slice, no collective)
+    hm = layers.gather_dim(h_cell, 3).transpose(1, 2).reshape(b, s, hh * pdh)
+    hm = layers.constrain(hm, ("batch", None, "model"))
     hm = layers.norm_apply(p["hnorm"], hm, "rmsnorm")
     hm = hm * F.silu(layers.dense(p["wg"], x))
     if mask_ids is not None and "masks" in p:
@@ -282,9 +299,15 @@ def _slstm_cell(rz: torch.Tensor, pre_x: torch.Tensor, state: Params, cfg):
     h = cfg.n_heads
     hp = layers.split_fit(state["h"], 1, h).reshape(b, h, d // h).to(
         rz.dtype)
-    rec = torch.einsum("bhd,hde->bhe", hp, rz).reshape(b, 4 * d)
-    pre = (pre_x + rec).float()
-    z, i, f, o = torch.split(pre, d, -1)
+    # the gates as [B, 4, D] (z, i, f, o; the reference's flat reshape puts
+    # the heads' outputs in gate order). On a mesh the product splits each
+    # gate's D over "model" while ``pre_x``'s 4D is split contiguously:
+    # flat, the product's split would be strided, which DTensor plans every
+    # op over for minutes on a 3-D mesh; ``pre_x`` is made whole instead
+    # and takes the product's split (a slice)
+    rec = layers.einsum("bhd,hde->bhe", hp, rz).reshape(b, 4, d)
+    pre = (layers.gather_dim(pre_x, 1).reshape(b, 4, d) + rec).float()
+    z, i, f, o = pre.unbind(1)
     # DTensor has no rule for log_sigmoid's backward: the local shards
     lf = layers.local_pointwise(F.logsigmoid, f)
     m_new = torch.maximum(lf + state["m"], i)

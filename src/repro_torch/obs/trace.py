@@ -6,8 +6,8 @@ and nested spans (``with tracer.span("admit", req_id=3): ...``) into a
 bounded in-process ``deque`` — one dict append per record, no I/O on the
 hot path — and exports the whole ring as JSONL (``export_jsonl``). Span
 begin/end records carry a span id and the enclosing span's id, so offline
-tooling (the repository's ``benchmarks/verify_obs.py``) can rebuild the
-nesting and each request's full lifecycle from the log alone.
+tooling (``obs.verify``) can rebuild the nesting and each request's full
+lifecycle from the log alone.
 
 The module-level :data:`TRACER` is the process tracer, **disabled by
 default**: the cached step closures in ``serving.server`` are

@@ -11,10 +11,7 @@ greedy steps); chaos tokens equal to the unfaulted router's (the port's
 failover is bit for bit).
 """
 
-import importlib.util
-import json
 import re
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -37,10 +34,9 @@ from repro_torch.models import model as t_model
 from repro_torch.models import transformer as t_transformer
 from repro_torch.obs import registry as t_reg
 from repro_torch.obs import trace as t_trace
+from repro_torch.obs import verify as t_verify
 
 CPU = ["--device", "cpu"]
-VERIFY_OBS = Path(__file__).resolve().parents[1] / "benchmarks" / \
-    "verify_obs.py"
 
 
 @pytest.fixture(autouse=True)
@@ -137,11 +133,10 @@ def test_serve_uncertainty_lm_pooled_main(tmp_path, capsys):
     assert re.search(r"router: 5/5 completed .* deaths 1", out)
     (n,) = [int(v) for v in re.findall(r"wrote (\d+) trace records", out)]
     assert n > 0 and len(trace.read_text().splitlines()) == n
-    spec = importlib.util.spec_from_file_location("verify_obs", VERIFY_OBS)
-    verify_obs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(verify_obs)
-    events = [json.loads(line) for line in trace.read_text().splitlines()]
-    assert verify_obs.verify_trace_events(events) == []
+    assert f"python -m repro_torch.obs.verify --trace {trace}" in out
+    assert t_verify.verify_trace_events(t_verify.load_jsonl(str(trace))) \
+        == []
+    assert t_verify.verify_metrics_text(prom.read_text()) == []
     assert "# TYPE router_host_deaths_total counter" in prom.read_text()
 
 

@@ -27,6 +27,9 @@ Scenarios:
                tokens the test saved, and ``serve_uncertain(mesh=)``
                per-op, under spies that record the ``flash_attention`` and
                ``moments`` calls' operand shapes.
+  einsum       4 ranks, (2, 2): ``layers.einsum`` on DTensors against
+               ``torch.einsum`` on whole tensors, values and gradients
+               (:data:`EINSUM_CASES`).
 """
 
 from __future__ import annotations
@@ -332,9 +335,88 @@ def scenario_serve(rank: int, workdir: str) -> None:
                            "moments": [shapes(a) for a, _ in moments]}, f)
 
 
+#: ``layers.einsum`` cases: (equation, [(shape, placements on the (2, 2)
+#: mesh: "R", "P" or a dim to shard) an operand, None for a plain one],
+#: whether the shards line up).
+EINSUM_CASES = [
+    # the mLSTM chunk's products (dh split over "model")
+    ("bhqd,bhtd->bhqt", [((4, 2, 6, 8), (0, 3)), ((4, 2, 6, 8), (0, 3))],
+     True),
+    ("bhqt,bhtd->bhqd", [((4, 2, 6, 6), (0, "R")), ((4, 2, 6, 8), (0, 3))],
+     True),
+    ("bhqd,bhde->bhqe", [((4, 2, 6, 8), (0, 3)), ((4, 2, 8, 8), None)],
+     True),
+    ("bht,bhtd,bhte->bhde", [((4, 2, 6), (0, "R")), ((4, 2, 6, 8), (0, 3)),
+                             ((4, 2, 6, 8), (0, "R"))], True),
+    # the decode step: a partial q against C split over its second dh
+    ("bhd,bhde->bhe", [((4, 2, 8), ("P", "R")), ((4, 2, 8, 8), ("R", 3))],
+     True),
+    # grouped attention, GQA (2 KV heads, 2 queries each), heads split
+    ("bkgqd,bksd->bkgqs", [((4, 2, 2, 6, 8), (0, 1)), ((4, 2, 6, 8), (0, 1))],
+     True),
+    ("bkgqs,bksd->bkgqd", [((4, 2, 2, 6, 6), (0, 1)), ((4, 2, 6, 8), (0, 1))],
+     True),
+    # two subscripts split over one mesh dim: DTensor chooses
+    ("bhqd,bhde->bhqe", [((4, 2, 6, 8), (0, 3)), ((4, 2, 8, 8), (0, 3))],
+     False),
+]
+
+
+def scenario_einsum(rank: int, workdir: str) -> None:
+    """Each :data:`EINSUM_CASES` product by ``layers.einsum`` on DTensors
+    against ``torch.einsum`` on the whole tensors: values, and the
+    gradients of every operand through a fixed random cotangent."""
+    import torch
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard, distribute_tensor)
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import layers
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), device_type="cpu")
+    gen = torch.Generator().manual_seed(0)
+    for eq, specs, lined_up in EINSUM_CASES:
+        whole = [torch.randn(shape, generator=gen, dtype=torch.float64)
+                 for shape, _ in specs]
+        ops, leaves = [], []
+        for t, (_, pl) in zip(whole, specs):
+            if pl is None:
+                leaf = t.clone().requires_grad_()
+                ops.append(leaf)
+            elif "P" in pl:
+                # a partial sum: every rank holds its share of t
+                leaf = (t / mesh.size(pl.index("P"))).requires_grad_()
+                ops.append(DTensor.from_local(leaf, mesh, tuple(
+                    Partial() if p == "P" else Replicate() for p in pl),
+                    run_check=False))
+            else:
+                leaf = distribute_tensor(t, mesh, tuple(
+                    Replicate() if p == "R" else Shard(p) for p in pl)
+                ).requires_grad_()
+                ops.append(leaf)
+            leaves.append(leaf)
+        dts = tuple(o if isinstance(o, DTensor) else DTensor.from_local(
+            o, mesh, (Replicate(), Replicate()), run_check=False)
+            for o in ops)
+        if (layers._lined_up(eq, dts) is not None) != lined_up:
+            raise AssertionError(f"{eq} {specs}: lined up is not "
+                                 f"{lined_up}")
+        out = layers.einsum(eq, *ops).full_tensor()
+        plain = [t.clone().requires_grad_() for t in whole]
+        want = torch.einsum(eq, *plain)
+        torch.testing.assert_close(out, want, rtol=1e-12, atol=1e-12)
+        cot = torch.randn(want.shape, generator=gen, dtype=torch.float64)
+        (out * cot).sum().backward()
+        (want * cot).sum().backward()
+        for leaf, p, (_, pl) in zip(leaves, plain, specs):
+            got = leaf.grad.full_tensor() if isinstance(
+                leaf.grad, DTensor) else leaf.grad
+            torch.testing.assert_close(got, p.grad, rtol=1e-12, atol=1e-12,
+                                       msg=lambda m: f"{eq} {pl}: {m}")
+
+
 SCENARIOS = {"train": scenario_train, "elastic_a": scenario_elastic_a,
              "elastic_b": scenario_elastic_b,
-             "collectives": scenario_collectives, "serve": scenario_serve}
+             "collectives": scenario_collectives, "serve": scenario_serve,
+             "einsum": scenario_einsum}
 
 
 def main(argv: list[str]) -> None:
