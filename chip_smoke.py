@@ -131,9 +131,11 @@ Phases, each on its own line; any failure raises and exits nonzero:
      (``[scan_bwd_gates]``, again after the training legs),
      ``flash_attention`` at the recurrentgemma-2b
      and qwen2-1.5b prefill shapes (bf16 on the tensor cores; fp32 on the
-     CUDA cores; full attention; a ragged shape), with
-     ``scaled_dot_product_attention`` timed beside it, in events and in
-     profiler device time;
+     CUDA cores; full attention; a ragged shape), causal at Sq 128 / Skv
+     2,048 and 2,048 / 128 (top-left), and on the wide-head arm (dh 512
+     bf16, dh 320 fp32), with ``scaled_dot_product_attention`` timed
+     beside it, in events and in profiler device time (at Sq != Skv also
+     held to the plain version: its ``is_causal`` is top-left too);
   7. the hybrid main path: ``serve_uncertain`` on recurrentgemma-2b with the
      launches of the call asserted (18 rglru_scan, 8 flash_attention, no
      fused_decode), ms a decode step, prefill ms, state and cache bytes;
@@ -400,6 +402,30 @@ BB_PHASES = (("backbone_moe", "phi3.5-moe-42b-a6.6b", 4),
              ("backbone_vlm", "qwen2-vl-72b", 2))
 BB_VL_GRID = 8
 ENC_ARCH, ENC_CLIPS, ENC_FRAMES = "hubert-xlarge", 4, 500
+# flash_attention's timed cases, (name, b, h, hkv, sq, skv, dh, dtype,
+# causal) with skv None for sq: phase 6's ([hy_kernel]; the last four are
+# causal at Sq != Skv, top-left aligned, and the wide-head arm) and the
+# backbone phase's ([bb_kernel]); tools/time_flash.py times both tables
+HY_FLASH_CASES = (
+    ("rg_prefill", 32, 10, 1, LM_PROMPT, None, 256, "bfloat16", True),
+    ("rg_long", 4, 10, 1, 2048, None, 256, "bfloat16", True),
+    ("qwen_prefill", 32, 12, 2, LM_PROMPT, None, 128, "bfloat16", True),
+    ("qwen_fp32", 32, 12, 2, LM_PROMPT, None, 128, "float32", True),
+    ("qwen_full", 32, 12, 2, LM_PROMPT, None, 128, "bfloat16", False),
+    ("ragged", 3, 4, 2, 129, None, 80, "bfloat16", True),
+    ("q_short", 4, 12, 2, 128, 2048, 128, "bfloat16", True),
+    ("q_long", 4, 12, 2, 2048, 128, 128, "bfloat16", True),
+    ("wide_512", 4, 8, 2, 1024, None, 512, "bfloat16", True),
+    ("wide_320_fp32", 2, 8, 8, 512, None, 320, "float32", False))
+BB_FLASH_CASES = (
+    ("hubert_full", LM_MASKS * ENC_CLIPS, 16, 16, ENC_FRAMES, None, 80,
+     "bfloat16", False),
+    ("phi_prefill", LM_MASKS * LM_BATCH, 32, 8, LM_PROMPT, None, 128,
+     "bfloat16", True),
+    ("arctic_prefill", LM_MASKS * LM_BATCH, 56, 8, LM_PROMPT, None, 128,
+     "bfloat16", True),
+    ("vl_prefill", LM_MASKS * LM_BATCH, 64, 8, LM_PROMPT, None, 128,
+     "bfloat16", True))
 # fp32 prefill-vs-step agreement at full width and cut depth (arch, layers:
 # xlstm's 4 hold 3 mLSTM and 1 sLSTM), held to TOL_HY_PATH; phi3.5 at the
 # dropless capacity E/top_k (its smoke config's), so the prompt's routing
@@ -910,19 +936,21 @@ def _leaves(tree):
 
 
 def flash_case(gen, dev, time_ms, bound, nbytes, name, dims, dt,
-               causal) -> dict:
+               causal, skv=None) -> dict:
     """``flash_attention`` against its plain version at q [b, h, s, dh] and
-    k/v [b, hkv, s, dh] in ``dt``, with SDPA (``library_ms``) and the
-    profiler's device times beside it; raises beyond the bar (fp32:
-    TOL_FLASH_F32 relative; bf16: one ulp plus FLASH_BF16_V_SHARE max|v|).
-    Returns the record."""
+    k/v [b, hkv, skv, dh] (``skv`` None: s) in ``dt``, with SDPA
+    (``library_ms``; its ``is_causal`` is top-left aligned too, so its
+    error is a check) and the profiler's device times beside it; raises
+    beyond the bar (fp32: TOL_FLASH_F32 relative; bf16: one ulp plus
+    FLASH_BF16_V_SHARE max|v|). Returns the record."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     b, h, hkv, s, dh = dims
-    q, k, v = (torch.randn((b, n, s, dh), generator=gen, device=dev)
-               .to(dt) for n in (h, hkv, hkv))
+    skv = s if skv is None else skv
+    q, k, v = (torch.randn((b, n, sl, dh), generator=gen, device=dev)
+               .to(dt) for n, sl in ((h, s), (hkv, skv), (hkv, skv)))
     got = fa_ops.flash_attention(q, k, v, causal=causal)
     want = fa_ref.flash_attention_ref(q, k, v, causal=causal)
     err = (got.float() - want.float()).abs()
@@ -950,11 +978,23 @@ def flash_case(gen, dev, time_ms, bound, nbytes, name, dims, dt,
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                               enable_gqa=True)
 
-    pairs = s * (s + 1) // 2 if causal else s * s
-    rec = {"shape": name, "dims": [b, h, hkv, s, dh], "dtype": dt,
+    # (query, key) pairs the top-left causal mask keeps: row i sees
+    # min(i + 1, skv) keys
+    if not causal:
+        pairs = s * skv
+    elif s <= skv:
+        pairs = s * (s + 1) // 2
+    else:
+        pairs = skv * (skv + 1) // 2 + (s - skv) * skv
+    lib_err = (lib().float() - want.float()).abs()
+    if causal and s != skv and not bool((lib_err <= 4 * limit).all()):
+        # a bottom-right aligned mask differs by O(1) (2.7-4.0 at fp32)
+        raise AssertionError(f"flash_attention {name}: SDPA's is_causal "
+                             f"differs by {float(lib_err.max())}: another "
+                             f"alignment than the kernel's top-left mask")
+    rec = {"shape": name, "dims": [b, h, hkv, s, dh], "skv": skv, "dtype": dt,
            "causal": causal, "max_abs_err": float(err.max()), **extra,
-           "library_max_abs_err": float((lib().float() - want.float())
-                                        .abs().max()),
+           "library_max_abs_err": float(lib_err.max()),
            "ms": time_ms(lambda: fa_ops.flash_attention(q, k, v,
                                                         causal=causal)),
            "plain_ms": time_ms(lambda: fa_ref.flash_attention_ref(
@@ -963,8 +1003,12 @@ def flash_case(gen, dev, time_ms, bound, nbytes, name, dims, dt,
            "device_ms": device_ms(lambda: fa_ops.flash_attention(
                q, k, v, causal=causal)),
            "library_device_ms": device_ms(lib)}
+    # bytes: q read and o written once, and only the K/V rows the mask
+    # keeps (a causal Sq < Skv reads keys 0..Sq-1 alone)
+    kv_rows = min(s, skv) if causal else skv
     rec["bound_ms"], rec["bound_by"] = bound(
-        4 * b * h * pairs * dh, nbytes(q, k, v, got),
+        4 * b * h * pairs * dh,
+        nbytes(q, got) + 2 * b * hkv * kv_rows * dh * k.element_size(),
         BF16_PEAK if dt == torch.bfloat16 else FP32_PEAK)
     return rec
 
@@ -1054,15 +1098,9 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
     scan_bwd_gates_phase(dev, time_ms, "phase 6")
 
     flash = {}
-    for name, b, h, hkv, s, dh, dt, causal in (
-            ("rg_prefill", 32, 10, 1, LM_PROMPT, 256, torch.bfloat16, True),
-            ("rg_long", 4, 10, 1, 2048, 256, torch.bfloat16, True),
-            ("qwen_prefill", 32, 12, 2, LM_PROMPT, 128, torch.bfloat16, True),
-            ("qwen_fp32", 32, 12, 2, LM_PROMPT, 128, torch.float32, True),
-            ("qwen_full", 32, 12, 2, LM_PROMPT, 128, torch.bfloat16, False),
-            ("ragged", 3, 4, 2, 129, 80, torch.bfloat16, True)):
+    for name, b, h, hkv, s, skv, dh, dt, causal in HY_FLASH_CASES:
         rec = flash_case(gen, dev, time_ms, bound, nbytes, name,
-                         (b, h, hkv, s, dh), dt, causal)
+                         (b, h, hkv, s, dh), getattr(torch, dt), causal, skv)
         _phase("hy_kernel", name="flash_attention", **rec)
         flash[name] = rec
     torch.cuda.empty_cache()
@@ -1209,8 +1247,8 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
          "device_ms": main_f["device_ms"],
          "library_device_ms": main_f["library_device_ms"],
          **{f"{n}_{k}": r[k] for n, r in flash.items() if n != "rg_prefill"
-            for k in ("ms", "library_ms", "bound_ms", "device_ms",
-                      "library_device_ms")}}]
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                      "device_ms", "library_device_ms")}}]
 
 
 #: The seven kernels, in the order of the counters the LM, server and
@@ -2033,17 +2071,9 @@ def backbone_phases(dev, time_ms, bound, nbytes, counters) -> dict:
             raise AssertionError(f"{tag} launches {got}, expected {want}")
 
     # ---- the kernels at the new shapes -------------------------------------
-    for name, dims, causal in (
-            ("hubert_full", (LM_MASKS * ENC_CLIPS, 16, 16, ENC_FRAMES, 80),
-             False),
-            ("phi_prefill", (LM_MASKS * LM_BATCH, 32, 8, LM_PROMPT, 128),
-             True),
-            ("arctic_prefill", (LM_MASKS * LM_BATCH, 56, 8, LM_PROMPT, 128),
-             True),
-            ("vl_prefill", (LM_MASKS * LM_BATCH, 64, 8, LM_PROMPT, 128),
-             True)):
-        rec = flash_case(gen, dev, time_ms, bound, nbytes, name, dims,
-                         torch.bfloat16, causal)
+    for name, b, h, hkv, s, skv, dh, dt, causal in BB_FLASH_CASES:
+        rec = flash_case(gen, dev, time_ms, bound, nbytes, name,
+                         (b, h, hkv, s, dh), getattr(torch, dt), causal, skv)
         _phase("bb_kernel", name="flash_attention", **rec)
         out["flash_cases"][name] = rec
     for name, shape in (

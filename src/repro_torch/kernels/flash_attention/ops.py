@@ -3,8 +3,12 @@
 
 Dispatch is by device: a CPU (or ``meta``) tensor takes the plain version
 (:func:`ref.flash_attention_ref`, the port's prefill attention), a CUDA
-tensor launches the kernel or raises. No padding: the kernel masks ragged
-Sq, Skv and head widths up to 256.
+tensor launches the kernel or raises. Every arm of the TPU kernel runs on
+the card: causal or full at any Sq and Skv (the causal mask top-left
+aligned: row i sees keys j <= i), GQA, and any head width (above 256 on
+the kernel's wide arm). No padding: the kernel masks ragged Sq, Skv and
+dh. The one limit, from the kernel's int32 tile arithmetic: Sq, Skv and dh
+below ``MAX_DIM``.
 
 DTensor operands run the same wrapper on each rank's local shard
 (``local_map``), one launch a rank: a sequence dim sharded anywhere is
@@ -24,9 +28,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref as _ref
 
-__all__ = ["flash_attention", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "MAX_DIM"]
 
-MAX_HEAD_DIM = 256
+#: Sq, Skv and dh each stay below this (``kMaxDim`` of the kernel).
+MAX_DIM = 1 << 30
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
              + [ctypes.c_int] + [ctypes.c_void_p])
 _ENTRIES = {torch.float32: "flash_attention_f32_launch",
@@ -37,9 +42,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, chunk: int = 1024) -> torch.Tensor:
     """q [B, H, Sq, dh], k/v [B, Hkv, Skv, dh] (fp32 or bf16, one dtype)
     -> [B, H, Sq, dh] in q's dtype; q-head h reads kv-head
-    ``h // (H // Hkv)``. Causal requires ``Sq == Skv``. ``chunk`` is the
-    query-chunk length of the plain version (its peak memory); the kernel
-    does not read it."""
+    ``h // (H // Hkv)``. Causal masks key j for row i when j > i, at any
+    Sq and Skv. ``chunk`` is the query-chunk length of the plain version
+    (its peak memory); the kernel does not read it."""
     _build.check_no_grad("flash_attention", q=q, k=k, v=v)
     from torch.distributed.tensor import DTensor
     if isinstance(q, DTensor):
@@ -63,12 +68,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)} do not share batch and head "
                          f"width, or H is not a multiple of Hkv")
-    if causal and sq != skv:
-        raise ValueError(f"flash_attention: causal needs Sq == Skv, got "
-                         f"{sq} and {skv}")
-    if dh > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head width {dh} > "
-                         f"{MAX_HEAD_DIM}")
+    if max(sq, skv, dh) >= MAX_DIM:
+        raise ValueError(f"flash_attention: Sq {sq}, Skv {skv} or head "
+                         f"width {dh} is not below {MAX_DIM}")
     o = torch.empty_like(q)
     fn = _build.bind("flash_attention", _ENTRIES[q.dtype], _ARGTYPES)
     with _build.on_device(dev):

@@ -8,6 +8,9 @@ stored and dequantized in the kernel. ``sample_major`` picks the kernel's
 grid order (the reference's name and default): the paper's batch-level
 schedule, or with ``False`` the sampling-level one; one block body serves
 both, so the two orders give bit-equal results.
+:func:`masked_ffn_all_samples` is the unpacked entry: plain weights and
+masks in, packed by mask-zero skipping (``core.plan.compile_masked_ffn``)
+and run through this kernel.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.masked_ffn import ref as _ref
 
-__all__ = ["masked_ffn"]
+__all__ = ["masked_ffn", "masked_ffn_all_samples"]
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _Q_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -91,3 +94,18 @@ def masked_ffn(x: torch.Tensor, w1p: torch.Tensor, b1p: torch.Tensor,
 #: those of the int8 body among them).
 masked_ffn.launches = 0
 masked_ffn.int8_launches = 0
+
+
+def masked_ffn_all_samples(x: torch.Tensor, w1: torch.Tensor,
+                           b1: torch.Tensor, w2: torch.Tensor,
+                           b2: torch.Tensor, masks, *,
+                           device: torch.device | str | None = None
+                           ) -> torch.Tensor:
+    """x [B, D], w1 [D, F], b1 [F], w2 [F, D2], b2 [D2], masks [N, F] ->
+    ``relu(x @ w1 + b1) * masks[n] @ w2 + b2`` as [N, B, D2]
+    (:func:`ref.unpacked_masked_ffn_ref`). Compiles a one-pair plan
+    (mask-zero skipping) and executes it: one :func:`masked_ffn` launch on
+    the card (``device=None``), its plain version with ``device="cpu"``."""
+    from repro_torch.core import plan as plan_lib    # plan imports this module
+    plan = plan_lib.compile_masked_ffn(w1, b1, w2, b2, masks)
+    return plan_lib.execute(plan, x, device=device)

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["masked_ffn_ref"]
+__all__ = ["masked_ffn_ref", "unpacked_masked_ffn_ref"]
 
 
 def masked_ffn_ref(x: torch.Tensor, w1p: torch.Tensor, b1p: torch.Tensor,
@@ -27,3 +27,15 @@ def masked_ffn_ref(x: torch.Tensor, w1p: torch.Tensor, b1p: torch.Tensor,
         w2p = w2p.float() * w2s.float()
     h = torch.relu(torch.matmul(x, w1p) + b1p[:, None, :])     # [N, B, K]
     return torch.matmul(h, w2p) + b2
+
+
+def unpacked_masked_ffn_ref(x: torch.Tensor, w1: torch.Tensor,
+                            b1: torch.Tensor, w2: torch.Tensor,
+                            b2: torch.Tensor, masks: torch.Tensor
+                            ) -> torch.Tensor:
+    """The unpacked semantics packing must match: x [B, D], w1 [D, F],
+    b1 [F], w2 [F, D2], b2 [D2], masks [N, F] ->
+    ``relu(x @ w1 + b1) * masks[n] @ w2 + b2`` as [N, B, D2]."""
+    h = torch.relu(x @ w1 + b1)                                 # [B, F]
+    hm = h[None] * masks[:, None, :].to(h.dtype)                # [N, B, F]
+    return torch.matmul(hm, w2) + b2

@@ -790,16 +790,84 @@ def test_flash_attention_unaligned_operands(cuda):
                                fa.flash_attention(q, k, v), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("sq,skv", [(129, 300), (300, 129), (64, 1000),
+                                    (1000, 64)])
+def test_flash_attention_causal_at_unequal_lengths(cuda, sq, skv, dtype):
+    """Causal at Sq != Skv, top-left aligned, GQA 4/2: ragged tiles on both
+    axes on both sides of the diagonal (rows past Skv see every key; q
+    tiles that start past Skv read every key tile), one launch a call."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as far
+    q, k, v = _qkv(2, 4, 2, sq, 80, getattr(torch, dtype), cuda, seed=sq,
+                   skv=skv)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=True)
+    assert fa.flash_attention.launches == before + 1
+    _flash_close(got, far.flash_attention_ref(q, k, v, causal=True), v)
+
+
+@pytest.mark.parametrize("dh", (257, 320, 512, 1024))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("causal", (True, False))
+def test_flash_attention_wide_heads(cuda, dh, dtype, causal):
+    """Head widths above 256 (the wide arm: output slices of 256 columns
+    in bf16, 128 in fp32): 257 leaves a one-column slice and takes the
+    element-wise staging, 320 a ragged slice, 512 and 1024 whole ones;
+    GQA 4/2, ragged Sq 129 against Skv 100 (full) or 129 (causal)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as far
+    q, k, v = _qkv(2, 4, 2, 129, dh, getattr(torch, dtype), cuda, seed=dh,
+                   skv=None if causal else 100)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    assert fa.flash_attention.launches == before + 1
+    _flash_close(got, far.flash_attention_ref(q, k, v, causal=causal), v)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_flash_attention_wide_unaligned_operands(cuda, dtype):
+    """At dh 320, operands whose data does not start on 16 bytes take the
+    wide arm's element-wise staging and stores: bit for bit the result of
+    aligned ones."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    q, k, v = _qkv(2, 4, 2, 70, 320, getattr(torch, dtype), cuda, seed=4,
+                   skv=90)
+
+    def shifted(t):
+        out = torch.empty(t.numel() + 1, dtype=t.dtype,
+                          device=t.device)[1:].view(t.shape)
+        return out.copy_(t)
+
+    qs, ks, vs = map(shifted, (q, k, v))
+    assert qs.data_ptr() % 16
+    for causal in (True, False):
+        torch.testing.assert_close(fa.flash_attention(qs, ks, vs,
+                                                      causal=causal),
+                                   fa.flash_attention(q, k, v, causal=causal),
+                                   rtol=0, atol=0)
+
+
+def test_masked_ffn_all_samples_on_card(cuda):
+    """The unpacked entry packs the masks and launches ``masked_ffn`` once;
+    it agrees with the unpacked oracle."""
+    masks = masks_lib.generate_masks(masks_lib.MaskSpec(width=52, n_masks=8,
+                                                        scale=2.0))
+    gen = torch.Generator().manual_seed(2)
+    x, w1, b1, w2, b2 = (_rand(gen, *s).to(cuda) for s in
+                         ((300, 104), (104, 52), (52,), (52, 104), (104,)))
+    before = mops.masked_ffn.launches
+    got = mops.masked_ffn_all_samples(x, w1, b1, w2, b2, masks)
+    assert mops.masked_ffn.launches == before + 1
+    want = mref.unpacked_masked_ffn_ref(
+        x, w1, b1, w2, b2, torch.from_numpy(masks).float().to(cuda))
+    torch.testing.assert_close(got, want, rtol=TOL_FWD, atol=TOL_FWD)
+
+
 def test_flash_attention_refuses_bad_operands(cuda):
     from repro_torch.kernels.flash_attention import ops as fa
     q, k, v = _qkv(2, 4, 2, 16, 32, torch.float32, cuda)
     before = fa.flash_attention.launches
-    with pytest.raises(ValueError, match="causal needs Sq == Skv"):
-        fa.flash_attention(q, k[:, :, :8].contiguous(),
-                           v[:, :, :8].contiguous(), causal=True)
-    q3, k3, v3 = _qkv(1, 2, 1, 4, 264, torch.float32, cuda)
-    with pytest.raises(ValueError, match="head width 264"):
-        fa.flash_attention(q3, k3, v3)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(TypeError, match="bfloat16"):

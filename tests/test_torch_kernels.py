@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import masks as j_masks
 from repro.kernels.fused_plan import ops as j_fops
 from repro.kernels.fused_plan import ref as j_fref
 from repro.kernels.masked_ffn import ops as j_mops
@@ -55,6 +56,32 @@ def test_masked_ffn_plain_matches_pallas_interpret():
     want = j_mops.masked_ffn(*args, interpret=True)
     _close(t_mref.masked_ffn_ref(*map(torch.from_numpy, args)), want,
            TOL_FWD)
+
+
+@pytest.mark.parametrize("width,n_masks,b", [(24, 4, 10), (52, 8, 37)])
+def test_masked_ffn_unpacked_entry_matches_jax(width, n_masks, b):
+    """``masked_ffn_all_samples`` (a one-pair plan, packed by mask-zero
+    skipping) and the oracle ``unpacked_masked_ffn_ref`` against the
+    reference's two functions, on its own Masksembles masks."""
+    masks = j_masks.generate_masks(j_masks.MaskSpec(width=width,
+                                                    n_masks=n_masks,
+                                                    scale=2.0))
+    rng = np.random.default_rng(width)
+    x, w1, b1, w2, b2 = (rng.normal(size=s).astype(np.float32) * 0.3
+                         for s in ((b, 6), (6, width), (width,),
+                                   (width, 5), (5,)))
+    args = (x, w1, b1, w2, b2)
+    want = j_mref.unpacked_masked_ffn_ref(*args, masks.astype(np.float32))
+    _close(j_mops.masked_ffn_all_samples(*args, masks), want, TOL_FWD)
+    targs = tuple(map(torch.from_numpy, args))
+    tmasks = torch.from_numpy(masks.astype(np.float32))
+    _close(t_mref.unpacked_masked_ffn_ref(*targs, tmasks), want, TOL_FWD)
+    before = t_mops.masked_ffn.launches
+    got = t_mops.masked_ffn_all_samples(*targs, masks, device="cpu")
+    assert got.shape == (n_masks, b, 5)
+    assert t_mops.masked_ffn.launches == before
+    _close(got, want, TOL_FWD)
+    _close(got, j_mops.masked_ffn_all_samples(*args, masks), TOL_FWD)
 
 
 def _random_params(spec, seed):
