@@ -130,8 +130,10 @@ Phases, each on its own line; any failure raises and exits nonzero:
      backward at the training shape on two gate draws
      (``[scan_bwd_gates]``, again after the training legs),
      ``flash_attention`` at the recurrentgemma-2b
-     and qwen2-1.5b prefill shapes (bf16 on the tensor cores; fp32 on the
-     CUDA cores; full attention; a ragged shape), causal at Sq 128 / Skv
+     and qwen2-1.5b prefill shapes (bf16 on the tensor cores; fp32 as
+     3xTF32 on the tensor cores, priced at that rate with the CUDA cores'
+     bound beside it, ``bound_cc_ms``; full attention; a ragged shape),
+     causal at Sq 128 / Skv
      2,048 and 2,048 / 128 (top-left), and on the wide-head arm (dh 512
      bf16, dh 320 fp32), with ``scaled_dot_product_attention`` timed
      beside it, in events and in profiler device time (at Sq != Skv also
@@ -249,12 +251,15 @@ Phases, each on its own line; any failure raises and exits nonzero:
      ``backbone_launches`` by architecture, the training runs' as
      ``train_launches``, the mesh phases' as ``mesh_launches``, the
      examples' as ``examples_launches``; the scan's backward as
-     ``backward_*``), then the device line.
+     ``backward_*``; flash_attention's fp32 launches by path as
+     ``f32_launches``, from the wrapper's ``launches_f32``), then the
+     device line.
 
 Weights are random from ``torch.Generator`` seeds (IVIM: seed 0 with
 non-trivial BN running statistics from seed 1; LM: seed 0); the data is
 made on the card. TF32 is off throughout: the reference's fp32 products
-are true fp32.
+are true fp32 (the kernels' own fp32 products are 3xTF32, held to the
+fp32 bars).
 """
 
 from __future__ import annotations
@@ -411,6 +416,7 @@ HY_FLASH_CASES = (
     ("rg_long", 4, 10, 1, 2048, None, 256, "bfloat16", True),
     ("qwen_prefill", 32, 12, 2, LM_PROMPT, None, 128, "bfloat16", True),
     ("qwen_fp32", 32, 12, 2, LM_PROMPT, None, 128, "float32", True),
+    ("rg_fp32", 32, 10, 1, LM_PROMPT, None, 256, "float32", True),
     ("qwen_full", 32, 12, 2, LM_PROMPT, None, 128, "bfloat16", False),
     ("ragged", 3, 4, 2, 129, None, 80, "bfloat16", True),
     ("q_short", 4, 12, 2, 128, 2048, 128, "bfloat16", True),
@@ -806,8 +812,7 @@ def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
         fns.prefill(p, prompts.repeat(LM_MASKS, 1), max_seq=max_seq)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t
-        for ctr in counters:
-            ctr.launches = 0
+        _reset_counts(counters)
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = engine.serve_uncertain(
@@ -817,6 +822,10 @@ def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
         secs = time.perf_counter() - t
         counts = tuple(ctr.launches for ctr in counters)
         counts, mo_launches = counts[:3] + counts[4:], counts[3]
+        _note_f32(f"lm_{str(c.dtype).split('.')[-1]}"
+                  f"{'_int8kv' if c.kv_dtype == 'int8' else ''}_"
+                  f"{'fused' if fused is None and fused_steps else 'per_op'}",
+                  counters)
         expect = (0, 0, 0, fused_steps if fused is None else 0,
                   LM_FLASH_LAUNCHES, 0)
         if counts != expect:
@@ -1006,10 +1015,14 @@ def flash_case(gen, dev, time_ms, bound, nbytes, name, dims, dt,
     # bytes: q read and o written once, and only the K/V rows the mask
     # keeps (a causal Sq < Skv reads keys 0..Sq-1 alone)
     kv_rows = min(s, skv) if causal else skv
+    flops = 4 * b * h * pairs * dh
+    moved = nbytes(q, got) + 2 * b * hkv * kv_rows * dh * k.element_size()
+    # fp32 products run 3xTF32 on the tensor cores; the CUDA cores' fp32
+    # rate beside it
     rec["bound_ms"], rec["bound_by"] = bound(
-        4 * b * h * pairs * dh,
-        nbytes(q, got) + 2 * b * hkv * kv_rows * dh * k.element_size(),
-        BF16_PEAK if dt == torch.bfloat16 else FP32_PEAK)
+        flops, moved, BF16_PEAK if dt == torch.bfloat16 else TF32_3X_PEAK)
+    if dt == torch.float32:
+        rec["bound_cc_ms"] = bound(flops, moved, FP32_PEAK)[0]
     return rec
 
 
@@ -1062,8 +1075,7 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
     gen = torch.Generator(dev).manual_seed(4)
 
     def reset():
-        for ctr in counters:
-            ctr.launches = 0
+        _reset_counts(counters)
 
     def launches():
         """Launch counts without the moments kernel's (index 3): its one
@@ -1160,6 +1172,7 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
     counts = launches()
+    _note_f32("hy_main_path", counters)
     expect = (0, 0, 0, 0, n_local, n_rec)
     if counts != expect:
         raise AssertionError(f"{HY_ARCH} launches (masked_ffn, samples, "
@@ -1196,6 +1209,7 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
                                   max_seq=LM_PROMPT + 1)
     torch.cuda.synchronize()
     full_counts = launches()
+    _note_f32("hy_path_agreement_prefill", counters)
     _, caches = transformer.prefill(cfg5, p5, {"tokens": toks[:, :-1]},
                                     max_seq=LM_PROMPT + 1)
     reset()
@@ -1248,7 +1262,9 @@ def hybrid_phases(dev, time_ms, bound, nbytes, counters) -> list:
          "library_device_ms": main_f["library_device_ms"],
          **{f"{n}_{k}": r[k] for n, r in flash.items() if n != "rg_prefill"
             for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                      "device_ms", "library_device_ms")}}]
+                      "device_ms", "library_device_ms")},
+         **{f"{n}_bound_cc_ms": r["bound_cc_ms"] for n, r in flash.items()
+            if "bound_cc_ms" in r}}]
 
 
 #: The seven kernels, in the order of the counters the LM, server and
@@ -1257,12 +1273,32 @@ KERNEL_NAMES = ("masked_ffn", "fused_plan_samples", "fused_plan_moments",
                 "moments", "fused_decode", "flash_attention", "rglru_scan")
 
 
+#: ``flash_attention``'s fp32 launches (the wrapper's ``launches_f32``) by
+#: path, read where each path reads its launch counts; the kernels line's
+#: flash_attention record carries them as ``f32_launches``.
+FLASH_F32_LAUNCHES: dict = {}
+
+
 def _reset_counts(counters) -> None:
     for ctr in counters:
         ctr.launches = 0
+        if hasattr(ctr, "launches_f32"):
+            ctr.launches_f32 = 0
 
 
-def _launch_counts(counters) -> dict:
+def _note_f32(path: str, counters) -> None:
+    """Add flash_attention's fp32 launches since the counts were set to 0
+    (``counters`` in ``KERNEL_NAMES`` order) to ``FLASH_F32_LAUNCHES``."""
+    flash = counters[KERNEL_NAMES.index("flash_attention")]
+    FLASH_F32_LAUNCHES[path] = (FLASH_F32_LAUNCHES.get(path, 0)
+                                + getattr(flash, "launches_f32", 0))
+
+
+def _launch_counts(counters, path: str | None = None) -> dict:
+    """Launches by kernel since the counts were set to 0; with ``path``,
+    the fp32 flash launches are noted under it too."""
+    if path is not None:
+        _note_f32(path, counters)
     return {n: ctr.launches for n, ctr in zip(KERNEL_NAMES, counters)}
 
 
@@ -1364,7 +1400,7 @@ def server_phases(dev, time_ms, bound, nbytes, counters, scan_plan,
     summary = srv.run()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    got = _launch_counts(counters)
+    got = _launch_counts(counters, "server")
     built = _step_builds() - before[0]
     occ, vocc = (srv.metrics.occupancy_samples,
                  srv.metrics.voxel_occupancy_samples)
@@ -1622,7 +1658,7 @@ def server_phases(dev, time_ms, bound, nbytes, counters, scan_plan,
     rids32 = [srv32.submit(p) for p in p32]
     _reset_counts(counters)
     srv32.run()
-    steps32 = _launch_counts(counters)["fused_decode"]
+    steps32 = _launch_counts(counters, "server_fp32")["fused_decode"]
     gen, unc, _ = engine.serve_uncertain(
         model32, params32, torch.from_numpy(p32).to(dev),
         engine.ServeConfig(max_new_tokens=LM_NEW, fused=True), device=dev)
@@ -1703,7 +1739,7 @@ def server_phases(dev, time_ms, bound, nbytes, counters, scan_plan,
                             raise AssertionError(f"hybrid slot {slot}: "
                                                  f"{name} not reset")
             resets += 1
-    hgot = _launch_counts(counters)
+    hgot = _launch_counts(counters, "server_hybrid")
     n_rec, n_local = kinds.count("rec"), kinds.count("local_attn")
     if (hgot["rglru_scan"], hgot["flash_attention"], hgot["fused_decode"]) \
             != (n_rec * SRV_HY_REQUESTS, n_local * SRV_HY_REQUESTS, 0) \
@@ -1798,7 +1834,9 @@ def router_phases(dev, counters, scan_plan, volume) -> dict:
             step()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        got, built = _launch_counts(counters), _step_builds() - b0
+        got = _launch_counts(counters,
+                             "router_faulted" if faults.events else "router")
+        built = _step_builds() - b0
         summary = router.summary()
         scan = router.result(rs)
         pooled = scan.scan_moments()
@@ -1919,8 +1957,10 @@ def router_phases(dev, counters, scan_plan, volume) -> dict:
         faults=FaultPlan(events=(FaultEvent(
             step=ROUTER_FP32_KILL_STEP, host=ROUTER_FP32_KILL_HOST,
             action="kill"),)))
+    _reset_counts(counters)
     rids32 = [router.submit(p) for p in p32]
     s32 = router.run(max_steps=10_000, tick=lambda: clock.advance(1.0))
+    _note_f32("router_fp32", counters)
     same = all(router.result(r).generated == single.result(q).generated
                for r, q in zip(rids32, srids))
     got_u = torch.tensor([router.result(r).uncertainty for r in rids32])
@@ -2138,7 +2178,7 @@ def backbone_phases(dev, time_ms, bound, nbytes, counters) -> dict:
             device=dev)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
-        counts = _launch_counts(counters)
+        counts = _launch_counts(counters, f"backbone_{arch}")
         expect(tag, counts, n_attn, 1 + LM_NEW)
         if (_step_builds(), fallbacks()) != (builds, fell):
             raise AssertionError(f"{arch}: a step build or a fused "
@@ -2200,7 +2240,7 @@ def backbone_phases(dev, time_ms, bound, nbytes, counters) -> dict:
     mean, std = encode()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
-    counts = _launch_counts(counters)
+    counts = _launch_counts(counters, f"backbone_{ENC_ARCH}")
     expect("backbone_encoder", counts, cfg.n_layers, 1)
     if _step_builds() != builds:
         raise AssertionError("encoder: a step build in the timed run")
@@ -2246,7 +2286,7 @@ def backbone_phases(dev, time_ms, bound, nbytes, counters) -> dict:
         full, _ = transformer.prefill(cfg, p, {"tokens": toks},
                                       max_seq=LM_PROMPT + 1)
         torch.cuda.synchronize()
-        full_counts = _launch_counts(counters)
+        full_counts = _launch_counts(counters, f"backbone_agreement_{arch}")
         _, caches = transformer.prefill(cfg, p, {"tokens": toks[:, :-1]},
                                         max_seq=LM_PROMPT + 1)
         _reset_counts(counters)
@@ -2320,7 +2360,7 @@ def vl_embeds_leg(cfg, params, dev, counters, expect, n_attn) -> None:
     (mean, rel), caches = prefill()
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
-    counts = _launch_counts(counters)
+    counts = _launch_counts(counters, "backbone_vlm_embeds")
     expect("backbone_vlm embeds", counts, n_attn, 1)
     tok = mean.argmax(-1).to(torch.int32).repeat(LM_MASKS)[:, None]
     step, _ = transformer.decode_step(cfg, params, caches, tok, LM_PROMPT,
@@ -2822,7 +2862,7 @@ def train_phases(dev, time_ms, bound, counters) -> dict:
 
     def add_counts():
         nonlocal backward_total
-        for name, n in _launch_counts(counters).items():
+        for name, n in _launch_counts(counters, "train").items():
             totals[name] += n
         backward_total += sc_ops.rglru_scan.backward_launches
 
@@ -3166,7 +3206,7 @@ def mesh_phases(dev, time_ms, counters) -> dict:
         """The launches since ``reset``; tallied when the run was on a
         mesh (the unsharded runs beside them are not the mesh's path)."""
         nonlocal backward_total
-        counts = _launch_counts(counters)
+        counts = _launch_counts(counters, "mesh" if meshed else None)
         if meshed:
             for name, n in counts.items():
                 totals[name] += n
@@ -3659,7 +3699,7 @@ def examples_phase(dev, counters) -> dict:
         out = fn()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        got = _launch_counts(counters)
+        got = _launch_counts(counters, "examples")
         missing = [k for k in reaches if not got[k]]
         if missing:
             raise AssertionError(f"[examples] {name}: no launch of "
@@ -4243,6 +4283,8 @@ def main() -> int:
                                   "device_ms", "library_device_ms",
                                   "max_abs_err")})
     for rec in line:    # the training and mesh runs' launches beside each
+        if rec["name"] == "flash_attention":     # and the fp32 ones by path
+            rec["f32_launches"] = dict(FLASH_F32_LAUNCHES)
         rec["train_launches"] = trained["launches"].get(rec["name"], 0)
         rec["mesh_launches"] = meshed["launches"].get(rec["name"], 0)
         rec["examples_launches"] = examples["launches"].get(rec["name"], 0)

@@ -79,11 +79,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  _build.stream_of(dev))
     _build.check_launch("flash_attention", err)
     flash_attention.launches += 1
+    if q.dtype == torch.float32:
+        flash_attention.launches_f32 += 1
     return o
 
 
 #: Kernel launches since the count was last set to 0.
 flash_attention.launches = 0
+#: Of them, fp32 launches (the 3xTF32 kernels), counted apart.
+flash_attention.launches_f32 = 0
 
 
 def _on_local_shards(q, k, v, causal: bool, chunk: int) -> torch.Tensor:

@@ -735,19 +735,24 @@ def _flash_close(got, want, v):
                                    atol=TOL_FLASH_F32)
 
 
-@pytest.mark.parametrize("dh", (16, 30, 80, 128, 256))
+@pytest.mark.parametrize("dh", (16, 30, 64, 65, 80, 128, 129, 256, 257))
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
 @pytest.mark.parametrize("causal", (True, False))
 def test_flash_attention_kernel_matches_plain(cuda, dh, dtype, causal):
     """Ragged S (129: a third q tile and key tile of one row), GQA 4/2;
     dh 30 rows are no whole number of 16-byte words (element-wise staging)
-    nor of float4s (zero-padded head columns)."""
+    nor of float4s (zero-padded head columns); 64/65, 128/129 and 256/257
+    sit on both sides of each head-width bucket (257: the wide arm). fp32
+    launches are counted apart (``launches_f32``)."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention import ref as far
     q, k, v = _qkv(2, 4, 2, 129, dh, getattr(torch, dtype), cuda, seed=dh)
     before = fa.flash_attention.launches
+    before_f32 = fa.flash_attention.launches_f32
     got = fa.flash_attention(q, k, v, causal=causal)
     assert fa.flash_attention.launches == before + 1
+    assert fa.flash_attention.launches_f32 == before_f32 + (
+        dtype == "float32")
     _flash_close(got, far.flash_attention_ref(q, k, v, causal=causal), v)
 
 
@@ -807,14 +812,15 @@ def test_flash_attention_causal_at_unequal_lengths(cuda, sq, skv, dtype):
     _flash_close(got, far.flash_attention_ref(q, k, v, causal=True), v)
 
 
-@pytest.mark.parametrize("dh", (257, 320, 512, 1024))
+@pytest.mark.parametrize("dh", (257, 288, 320, 512, 1024))
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
 @pytest.mark.parametrize("causal", (True, False))
 def test_flash_attention_wide_heads(cuda, dh, dtype, causal):
-    """Head widths above 256 (the wide arm: output slices of 256 columns
-    in bf16, 128 in fp32): 257 leaves a one-column slice and takes the
-    element-wise staging, 320 a ragged slice, 512 and 1024 whole ones;
-    GQA 4/2, ragged Sq 129 against Skv 100 (full) or 129 (causal)."""
+    """Head widths above 256 (the wide arm: output slices of 256 columns):
+    257 leaves a one-column slice and takes the element-wise staging, 288
+    and 320 a ragged slice (fp32 skips its 32-column groups past dh), 512
+    and 1024 whole ones; GQA 4/2, ragged Sq 129 against Skv 100 (full) or
+    129 (causal)."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention import ref as far
     q, k, v = _qkv(2, 4, 2, 129, dh, getattr(torch, dtype), cuda, seed=dh,
@@ -846,6 +852,60 @@ def test_flash_attention_wide_unaligned_operands(cuda, dtype):
                                                       causal=causal),
                                    fa.flash_attention(q, k, v, causal=causal),
                                    rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dh", (288, 320, 512))
+@pytest.mark.parametrize("sq,skv", [(129, 300), (300, 129)])
+def test_flash_attention_f32_wide_causal_unequal(cuda, dh, sq, skv):
+    """The fp32 wide arm at causal Sq != Skv, top-left aligned, GQA 4/2:
+    short q tiles against a long key axis and rows past Skv that see every
+    key, with every slice's m and l from the same scores."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as far
+    q, k, v = _qkv(2, 4, 2, sq, dh, torch.float32, cuda, seed=dh + sq,
+                   skv=skv)
+    before = fa.flash_attention.launches_f32
+    got = fa.flash_attention(q, k, v, causal=True)
+    assert fa.flash_attention.launches_f32 == before + 1
+    _flash_close(got, far.flash_attention_ref(q, k, v, causal=True), v)
+
+
+@pytest.mark.parametrize("dh", (30, 128, 288, 320, 512))
+def test_flash_attention_f32_unaligned_operands(cuda, dh):
+    """fp32 operands whose data does not start on 16 bytes take the
+    element-wise staging and scalar stores, narrow and wide: bit for bit
+    the result of aligned ones, causal at Sq != Skv and full."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    q, k, v = _qkv(2, 4, 2, 70, dh, torch.float32, cuda, seed=dh, skv=90)
+
+    def shifted(t):
+        out = torch.empty(t.numel() + 1, dtype=t.dtype,
+                          device=t.device)[1:].view(t.shape)
+        return out.copy_(t)
+
+    qs, ks, vs = map(shifted, (q, k, v))
+    assert qs.data_ptr() % 16
+    for causal in (True, False):
+        torch.testing.assert_close(fa.flash_attention(qs, ks, vs,
+                                                      causal=causal),
+                                   fa.flash_attention(q, k, v, causal=causal),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dims", (
+    (32, 12, 2, 128, 128),              # qwen2-1.5b's fp32 prefill
+    (32, 10, 1, 128, 256),              # recurrentgemma-2b's
+    (2, 8, 8, 512, 320)),               # the wide arm, two slices
+    ids=("qwen_fp32", "rg_fp32", "wide_320"))
+@pytest.mark.parametrize("causal", (True, False))
+def test_flash_attention_f32_reruns_bit_equal(cuda, dims, causal):
+    """Both fp32 kernels are deterministic (no atomics; each sum in one
+    fixed order): two launches on the same operands are bit-equal."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    b, h, hkv, s, dh = dims
+    q, k, v = _qkv(b, h, hkv, s, dh, torch.float32, cuda, seed=s + dh)
+    first = fa.flash_attention(q, k, v, causal=causal)
+    assert torch.equal(fa.flash_attention(q, k, v, causal=causal), first)
 
 
 def test_masked_ffn_all_samples_on_card(cuda):
