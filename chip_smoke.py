@@ -68,6 +68,14 @@ and read just after:
   hybrid's with the scan on each rank's local shard, an elastic restart
   through a resharding checkpoint, the int8 all-reduce and a pipeline
   stage on NCCL, and ``serve_uncertain(mesh=)``.
+* The dense stacks at their published widths and full depth, one after
+  the other (each freed before the next loads): stablelm-12b (40 layers,
+  head width 160, partial rotary), granite-20b (52 layers, 48 query heads
+  on one KV head, layernorm + GELU MLP) and deepseek-coder-33b (62 layers,
+  GQA group 7, 66.7 GB of bf16 weights), each serving the LM traffic
+  through ``serve_uncertain`` fused and per-op; deepseek-coder-33b also
+  one wave of the server's traffic through an 8-slot
+  ``BayesianLMServer``.
 
 Phases, each on its own line; any failure raises and exits nonzero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -245,12 +253,28 @@ Phases, each on its own line; any failure raises and exits nonzero:
      (tokens equal to an unfaulted router run's, the trace through
      ``obs.verify``); each leg's seconds and launches by kernel, a zero
      count of a kernel its path reaches failing the phase;
- 24. one JSON line with every kernel's numbers (the server's and the
+ 24-26. the dense stacks (``dense_phases``: ``[dense_stablelm]``,
+     ``[dense_granite]``, ``[dense_deepseek]``): each model's parameters
+     built on the card a layer at a time; ``flash_attention`` at its
+     prefill shape and ``moments`` at its posterior against their plain
+     versions (SDPA and ``torch.std_mean`` beside them), ``fused_decode``
+     against its plain version on one full-width layer (the model's first)
+     and at full depth, with the fused and per-op serving steps
+     (``[dense_kernel]``); ``serve_uncertain`` fused and per-op with the
+     launches asserted (one flash_attention a layer a prefill, one
+     fused_decode a token on the fused leg and none per-op); on
+     deepseek-coder-33b one server wave (8 requests, one moments and one
+     flash_attention a layer an admission, one fused_decode a step); each
+     leg's peak memory on a ``[dense_memory]`` line, and the card's memory
+     back to what it held once the model is dropped;
+ 27. one JSON line with every kernel's numbers (the server's and the
      router's launches as ``server_launches``, ``router_launches`` and
      ``router_faulted_launches``, the backbone phases' as
      ``backbone_launches`` by architecture, the training runs' as
      ``train_launches``, the mesh phases' as ``mesh_launches``, the
-     examples' as ``examples_launches``; the scan's backward as
+     examples' as ``examples_launches``, the dense stacks' as
+     ``dense_launches`` by model and leg, and their kernel cases as
+     ``<model>_<case>_<field>``; the scan's backward as
      ``backward_*``; flash_attention's fp32 launches by path as
      ``f32_launches``, from the wrapper's ``launches_f32``), then the
      device line.
@@ -518,6 +542,21 @@ TOL_MESH_PIPE = 1e-5
 # widths, bf16), the LM traffic, per-op decode (the fused step sums across
 # blocks with float atomics: two runs need not agree bit for bit)
 MESH_SERVE_LAYERS = 2
+# the dense stacks at published widths and full depth (phases 24-26), run
+# one after the other, each model freed before the next loads: tag, arch
+# (stablelm-12b 40 layers, head width 160, a 40-wide rotary part;
+# granite-20b 52, 48 query heads on one KV head; deepseek-coder-33b 62,
+# GQA group 7, 66.7 GB of bf16 weights). Each serves the LM traffic above
+# fused and per-op (bf16, random weights, 4 masks), after flash_attention
+# and fused_decode at one layer's shapes against their plain versions;
+# deepseek-coder-33b also serves one wave of the server phase's traffic
+# (its first SRV_WAVE requests) through an 8-slot BayesianLMServer. A
+# model still holding card memory once dropped fails its phase.
+DENSE_PHASES = (("dense_stablelm", "stablelm-12b"),
+                ("dense_granite", "granite-20b"),
+                ("dense_deepseek", "deepseek-coder-33b"))
+DENSE_SERVER_ARCH = "deepseek-coder-33b"
+DENSE_FREED_SLACK = 512 << 20       # bytes a dropped model may leave held
 
 
 def _phase(phase: str, /, **fields) -> None:
@@ -629,6 +668,135 @@ def stage_bytes(spec, flat, rows, kv_bytes, x, got) -> dict:
     return out
 
 
+def decode_pool(dev, c, p, n, toks, cap):
+    """Prefill a mask-major pool of ``toks`` under ``n`` masks with a
+    ``cap``-slot cache (per-op steps); returns (caches, next tokens)."""
+    import torch
+    from repro_torch.serving import server
+    mean, _, caches = server.step_fns(c, fused=False, device=dev) \
+        .prefill(p, toks.repeat(n, 1), max_seq=cap)
+    return caches, mean.argmax(-1).to(torch.int32).repeat(n)[:, None]
+
+def decode_operands(dev, c, p, caches, tok, plen):
+    """The fused decode step's operands on a prefilled pool: (spec, (x,
+    flat, caches, pos, cos, sin)), every row at position ``plen``."""
+    import torch
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.models import layers
+    rows = tok.shape[0]
+    spec = plan_lib.lower_fused_decode(c)
+    flat = plan_lib._decode_flat_params(spec, c, p, rows, True)
+    fc = plan_lib._decode_flat_caches(c, caches)
+    pos = torch.full((rows,), plen, dtype=torch.int32, device=dev)
+    rot = next(s.rot_dim for s in spec.steps if s.kind == "attn")
+    x = layers.embed_tokens(p["embed"], tok[:, 0])
+    cos, sin = layers.rope_cos_sin(pos, rot, c.rope_theta)
+    return spec, (x, flat, fc, pos, cos, sin)
+
+
+def decode_kernel_case(dev, time_ms, bound, nbytes, tag, name, c, p,
+                       caches, tok, plen, step_legs=False,
+                       rel_bar=TOL_DECODE_REL) -> dict:
+    """``fused_decode`` against its plain version on a prefilled pool
+    (mean_logp also within ``rel_bar`` of its magnitude), timed beside its
+    bound (the valid cache slots only), per stage, and with
+    ``step_legs`` the fused and per-op serving steps and the fused step's
+    parts outside the kernel; printed under ``[tag]``. Returns the
+    record."""
+    import torch
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.kernels.fused_decode import ops as fd_ops
+    from repro_torch.models import layers, model as lm_model
+    from repro_torch.serving import server
+    spec, args = decode_operands(dev, c, p, caches, tok, plen)
+    got = fd_ops.fused_decode(spec, *args)
+    want = fd_ops.fused_decode_ref(spec, *args)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=TOL_DECODE,
+                                   atol=TOL_DECODE)
+    err = max(float((g - w).abs().max())
+              for g, w in zip(got[:2], want[:2]))
+    kv_err = max(_within_bf16_ulp(g, w) if g.dtype == torch.bfloat16
+                 else float((g - w).abs().max())
+                 for g, w in zip(got[2:], want[2:]))
+    # k/v error at the tensor's scale, and the kernel against itself
+    # (its split sums meet in atomics, in another order each launch)
+    kv_scale_err = max(float((g.float() - w.float()).abs().max()
+                             / w.float().abs().max())
+                       for g, w in zip(got[2:], want[2:]))
+    again = fd_ops.fused_decode(spec, *args)
+    kv_self = sum(int(((g.float() - a.float()).abs() > (
+        g.float().abs().clamp_min(1e-30).log2().floor() - 7).exp2())
+        .sum()) for g, a in zip(got[2:], again[2:])) \
+        if got[2].dtype == torch.bfloat16 else 0
+    x, flat, fc, pos, cos, sin = args
+    rows, smax = x.shape[0], fc[0].shape[2]
+    # what this step's data needs: attention reads and scores only the
+    # cache slots that are valid for the row (kpos in [0, pos], not the
+    # slot being overwritten), plus the fresh key
+    attn = [s for s in spec.steps if s.kind == "attn"]
+    p64 = pos.long()
+    seen = 0
+    for st, k, kpos in zip(attn, fc[0::3], fc[2::3]):
+        slot = ((p64 % st.window) if st.window else p64) % smax
+        seen += int(((kpos >= 0) & (kpos <= p64[:, None])
+                     & (torch.arange(smax, device=dev)[None, :]
+                        != slot[:, None])).sum())
+    at = attn[0]
+    per_key = 4 * at.n_heads * at.head_dim // at.n_kv_heads
+    flops = plan_lib.decode_traffic(spec, rows, smax).flops \
+        - len(attn) * rows * at.n_kv_heads * per_key * (smax + 1) \
+        + at.n_kv_heads * per_key * (seen + len(attn) * rows)
+    kv_bytes = 2 * seen * at.n_kv_heads * at.head_dim \
+        * fc[0].element_size() + nbytes(*fc[2::3])
+    moved = nbytes(x, pos, cos, sin, *got, *flat) + kv_bytes
+    # fp32 accuracy: mean_logp's error over its largest magnitude
+    rel = float((got[0] - want[0]).abs().max() / want[0].abs().max())
+    if not rel <= rel_bar:
+        raise AssertionError(f"fused_decode {name}: error {rel:.3g} of "
+                             f"|mean_logp| (> {rel_bar}): the "
+                             f"products are not fp32-accurate")
+    rec = {"shape": name, "max_abs_err": err, "rel_err": rel,
+           "kv_max_abs_err": kv_err,
+           "kv_err_over_max": kv_scale_err,
+           "kv_beyond_1ulp_of_itself": kv_self,
+           "ms": time_ms(lambda: fd_ops.fused_decode(spec, *args), 10),
+           "plain_ms": time_ms(lambda: fd_ops.fused_decode_ref(
+               spec, *args), 3),
+           "blocks": fd_ops.last_grid["blocks"], "rows": rows,
+           "gflop": flops / 1e9, "mbytes": moved / 1e6}
+    # the last timed launch, per stage (block 0's barrier timestamps),
+    # beside the bytes each stage must move at the HBM rate
+    rec["stage_ms"] = {k: round(v, 4) for k, v in
+                       fd_ops.stage_ms(spec, rows, dev).items()}
+    rec["stage_bound_ms"] = {
+        k: round(1e3 * v / HBM_BW, 4) for k, v in
+        stage_bytes(spec, flat, rows, kv_bytes, x, got).items()}
+    # the products run as three bf16 tensor-core products (3xTF32 for
+    # fp32 weights); the CUDA cores' fp32 rate beside it
+    peak = BF16_PEAK / 3 if x.dtype == torch.bfloat16 else TF32_3X_PEAK
+    rec["bound_ms"], rec["bound_by"] = bound(flops, moved, peak)
+    rec["bound_ms_cuda_cores"] = bound(flops, moved)[0]
+    if step_legs:                   # whole serving steps, same operands
+        # and the fused step's parts outside the kernel
+        rot = next(st.rot_dim for st in spec.steps if st.kind == "attn")
+        rec["embed_rope_ms"] = time_ms(lambda: (
+            layers.embed_tokens(p["embed"], tok[:, 0]),
+            layers.rope_cos_sin(pos, rot, c.rope_theta)), 10)
+        rec["cache_commit_ms"] = time_ms(
+            lambda: plan_lib._decode_commit_caches(c, caches, got[2],
+                                                   got[3], pos), 3)
+        mk = lm_model.build_model(c)
+        for leg, fused in (("fused_step_ms", None),
+                           ("per_op_step_ms", False)):
+            fns = server.step_fns(mk, fused=fused, device=dev)
+            rec[leg] = time_ms(lambda: fns.decode(p, caches, tok, plen),
+                               3)
+    _phase(tag, name="fused_decode", **rec)
+    return rec
+
+
 def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
     """Phases 4 and 5: the LM decode kernel against its plain version at
     full width, then ``serve_uncertain`` fused and per-op (``counters``:
@@ -641,7 +809,6 @@ def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
     import torch
     from repro_torch.configs import registry
     from repro_torch.core import plan as plan_lib
-    from repro_torch.kernels.fused_decode import ops as fd_ops
     from repro_torch.models import layers, model as lm_model, transformer
     from repro_torch.serving import engine, server
 
@@ -658,115 +825,14 @@ def lm_phases(dev, time_ms, bound, nbytes, counters) -> dict:
                             generator=torch.Generator(dev).manual_seed(1),
                             device=dev, dtype=torch.int32)
     max_seq = LM_PROMPT + LM_NEW
-
-    def pool(c, p, n, toks, cap=max_seq):
-        """Prefill a mask-major pool; returns (caches, next tokens)."""
-        mean, _, caches = server.step_fns(c, fused=False, device=dev) \
-            .prefill(p, toks.repeat(n, 1), max_seq=cap)
-        return caches, mean.argmax(-1).to(torch.int32).repeat(n)[:, None]
-
-    def operands(c, p, caches, tok, plen):
-        rows = tok.shape[0]
-        spec = plan_lib.lower_fused_decode(c)
-        flat = plan_lib._decode_flat_params(spec, c, p, rows, True)
-        fc = plan_lib._decode_flat_caches(c, caches)
-        pos = torch.full((rows,), plen, dtype=torch.int32, device=dev)
-        rot = next(s.rot_dim for s in spec.steps if s.kind == "attn")
-        x = layers.embed_tokens(p["embed"], tok[:, 0])
-        cos, sin = layers.rope_cos_sin(pos, rot, c.rope_theta)
-        return spec, (x, flat, fc, pos, cos, sin)
-
     recs = {}
 
-    def kernel_case(name, c, p, caches, tok, plen, step_legs=False,
-                    rel_bar=TOL_DECODE_REL):
-        spec, args = operands(c, p, caches, tok, plen)
-        got = fd_ops.fused_decode(spec, *args)
-        want = fd_ops.fused_decode_ref(spec, *args)
-        torch.cuda.synchronize()
-        for g, w in zip(got[:2], want[:2]):
-            torch.testing.assert_close(g, w, rtol=TOL_DECODE,
-                                       atol=TOL_DECODE)
-        err = max(float((g - w).abs().max())
-                  for g, w in zip(got[:2], want[:2]))
-        kv_err = max(_within_bf16_ulp(g, w) if g.dtype == torch.bfloat16
-                     else float((g - w).abs().max())
-                     for g, w in zip(got[2:], want[2:]))
-        # k/v error at the tensor's scale, and the kernel against itself
-        # (its split sums meet in atomics, in another order each launch)
-        kv_scale_err = max(float((g.float() - w.float()).abs().max()
-                                 / w.float().abs().max())
-                           for g, w in zip(got[2:], want[2:]))
-        again = fd_ops.fused_decode(spec, *args)
-        kv_self = sum(int(((g.float() - a.float()).abs() > (
-            g.float().abs().clamp_min(1e-30).log2().floor() - 7).exp2())
-            .sum()) for g, a in zip(got[2:], again[2:])) \
-            if got[2].dtype == torch.bfloat16 else 0
-        x, flat, fc, pos, cos, sin = args
-        rows, smax = x.shape[0], fc[0].shape[2]
-        # what this step's data needs: attention reads and scores only the
-        # cache slots that are valid for the row (kpos in [0, pos], not the
-        # slot being overwritten), plus the fresh key
-        attn = [s for s in spec.steps if s.kind == "attn"]
-        p64 = pos.long()
-        seen = 0
-        for st, k, kpos in zip(attn, fc[0::3], fc[2::3]):
-            slot = ((p64 % st.window) if st.window else p64) % smax
-            seen += int(((kpos >= 0) & (kpos <= p64[:, None])
-                         & (torch.arange(smax, device=dev)[None, :]
-                            != slot[:, None])).sum())
-        at = attn[0]
-        per_key = 4 * at.n_heads * at.head_dim // at.n_kv_heads
-        flops = plan_lib.decode_traffic(spec, rows, smax).flops \
-            - len(attn) * rows * at.n_kv_heads * per_key * (smax + 1) \
-            + at.n_kv_heads * per_key * (seen + len(attn) * rows)
-        kv_bytes = 2 * seen * at.n_kv_heads * at.head_dim \
-            * fc[0].element_size() + nbytes(*fc[2::3])
-        moved = nbytes(x, pos, cos, sin, *got, *flat) + kv_bytes
-        # fp32 accuracy: mean_logp's error over its largest magnitude
-        rel = float((got[0] - want[0]).abs().max() / want[0].abs().max())
-        if not rel <= rel_bar:
-            raise AssertionError(f"fused_decode {name}: error {rel:.3g} of "
-                                 f"|mean_logp| (> {rel_bar}): the "
-                                 f"products are not fp32-accurate")
-        rec = {"shape": name, "max_abs_err": err, "rel_err": rel,
-               "kv_max_abs_err": kv_err,
-               "kv_err_over_max": kv_scale_err,
-               "kv_beyond_1ulp_of_itself": kv_self,
-               "ms": time_ms(lambda: fd_ops.fused_decode(spec, *args), 10),
-               "plain_ms": time_ms(lambda: fd_ops.fused_decode_ref(
-                   spec, *args), 3),
-               "blocks": fd_ops.last_grid["blocks"], "rows": rows,
-               "gflop": flops / 1e9, "mbytes": moved / 1e6}
-        # the last timed launch, per stage (block 0's barrier timestamps),
-        # beside the bytes each stage must move at the HBM rate
-        rec["stage_ms"] = {k: round(v, 4) for k, v in
-                           fd_ops.stage_ms(spec, rows, dev).items()}
-        rec["stage_bound_ms"] = {
-            k: round(1e3 * v / HBM_BW, 4) for k, v in
-            stage_bytes(spec, flat, rows, kv_bytes, x, got).items()}
-        # the products run as three bf16 tensor-core products (3xTF32 for
-        # fp32 weights); the CUDA cores' fp32 rate beside it
-        peak = BF16_PEAK / 3 if x.dtype == torch.bfloat16 else TF32_3X_PEAK
-        rec["bound_ms"], rec["bound_by"] = bound(flops, moved, peak)
-        rec["bound_ms_cuda_cores"] = bound(flops, moved)[0]
-        if step_legs:                   # whole serving steps, same operands
-            # and the fused step's parts outside the kernel
-            rot = next(st.rot_dim for st in spec.steps if st.kind == "attn")
-            rec["embed_rope_ms"] = time_ms(lambda: (
-                layers.embed_tokens(p["embed"], tok[:, 0]),
-                layers.rope_cos_sin(pos, rot, c.rope_theta)), 10)
-            rec["cache_commit_ms"] = time_ms(
-                lambda: plan_lib._decode_commit_caches(c, caches, got[2],
-                                                       got[3], pos), 3)
-            mk = lm_model.build_model(c)
-            for leg, fused in (("fused_step_ms", None),
-                               ("per_op_step_ms", False)):
-                fns = server.step_fns(mk, fused=fused, device=dev)
-                rec[leg] = time_ms(lambda: fns.decode(p, caches, tok, plen),
-                                   3)
-        _phase("lm_kernel", name="fused_decode", **rec)
-        recs[name] = rec
+    def pool(c, p, n, toks, cap=max_seq):
+        return decode_pool(dev, c, p, n, toks, cap)
+
+    def kernel_case(name, *args, **kw):
+        recs[name] = decode_kernel_case(dev, time_ms, bound, nbytes,
+                                        "lm_kernel", name, *args, **kw)
 
     caches, tok = pool(cfg, params, LM_MASKS, prompts)
     kernel_case("main", cfg, params, caches, tok, LM_PROMPT, step_legs=True)
@@ -3812,6 +3878,236 @@ def examples_phase(dev, counters) -> dict:
     return {"launches": total, "seconds": seconds}
 
 
+def dense_phases(dev, time_ms, bound, nbytes, counters) -> dict:
+    """Phases 24-26: stablelm-12b, granite-20b and deepseek-coder-33b at
+    their published widths and full depth (``DENSE_PHASES``), one at a
+    time. For each: the parameters built on the card a layer at a time;
+    ``flash_attention`` at its prefill shape against its plain version and
+    SDPA, ``moments`` at its posterior, ``fused_decode`` against its plain
+    version at one layer of the model (the first layer's weights, full
+    width) and at full depth (with the fused and per-op serving steps);
+    ``serve_uncertain`` fused and per-op on the LM traffic with its
+    launches asserted (one flash_attention a layer a prefill, one
+    fused_decode a token on the fused leg); on deepseek-coder-33b one
+    server wave. Each leg's peak memory on a ``[dense_memory]`` line.
+    Returns the launches by kernel and model, and the kernel records."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.models import model as lm_model
+    from repro_torch.serving import engine, server
+
+    out = {"launches": {}, "flash_cases": {}, "moments_cases": {},
+           "decode_cases": {}}
+    gen = torch.Generator(dev).manual_seed(11)
+    max_seq = LM_PROMPT + LM_NEW
+    peaks: dict[str, float] = {}
+
+    def memory_line(arch, leg, **fields):
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        peaks[arch] = max(peaks.get(arch, 0.0), peak)
+        _phase("dense_memory", arch=arch, leg=leg, peak_gbytes=peak,
+               **fields)
+        torch.cuda.reset_peak_memory_stats()
+
+    def expect(what, got, flash, decode, moments):
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        want.update(flash_attention=flash, fused_decode=decode,
+                    moments=moments)
+        if got != want:
+            raise AssertionError(f"{what} launches {got}, expected {want}")
+
+    for tag, arch in DENSE_PHASES:
+        short = tag.split("_", 1)[1]
+        t_phase = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = registry.get_config(arch, mask_samples=LM_MASKS)
+        h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        model = lm_model.build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        param_bytes = nbytes(*_leaves(params))
+        memory_line(arch, "init", param_gbytes=param_bytes / 1e9,
+                    held_gbytes=held / 1e9, init_s=f"{init_s:.2f}")
+        prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                                generator=torch.Generator(dev).manual_seed(1),
+                                device=dev, dtype=torch.int32)
+
+        # ---- the kernels at this model's shapes --------------------------
+        rec = flash_case(gen, dev, time_ms, bound, nbytes, f"{short}_prefill",
+                         (LM_MASKS * LM_BATCH, h, hkv, LM_PROMPT, dh),
+                         cfg.dtype, True)
+        _phase("dense_kernel", name="flash_attention", **rec)
+        out["flash_cases"][rec["shape"]] = rec
+        rec = moments_case(gen, dev, time_ms, bound, nbytes,
+                           f"{short}_posterior",
+                           (LM_MASKS, LM_BATCH, cfg.vocab_size),
+                           torch.float32)
+        _phase("dense_kernel", name="moments", **rec)
+        out["moments_cases"][rec["shape"]] = rec
+        # one layer at full width: the first layer's weights (views)
+        cfg1 = dataclasses.replace(cfg, n_layers=1)
+        p1 = dict(params, segments=[tree_lib.tree_map(lambda a: a[:1], seg)
+                                    for seg in params["segments"]])
+        caches, tok = decode_pool(dev, cfg1, p1, LM_MASKS, prompts, max_seq)
+        recs = {"one_layer": decode_kernel_case(
+            dev, time_ms, bound, nbytes, "dense_kernel", f"{short}_one_layer",
+            cfg1, p1, caches, tok, LM_PROMPT)}
+        del p1, caches, tok
+        caches, tok = decode_pool(dev, cfg, params, LM_MASKS, prompts,
+                                  max_seq)
+        recs["full"] = decode_kernel_case(
+            dev, time_ms, bound, nbytes, "dense_kernel", f"{short}_full", cfg,
+            params, caches, tok, LM_PROMPT, step_legs=True)
+        del caches, tok
+        out["decode_cases"].update({r["shape"]: r for r in recs.values()})
+        memory_line(arch, "kernels")
+
+        # ---- the LM main path: serve_uncertain fused and per-op ----------
+        legs = {}
+        for fused in (None, False):
+            leg = "fused" if fused is None else "per_op"
+            fns = server.step_fns(model, fused=fused, device=dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fns.prefill(params, prompts.repeat(LM_MASKS, 1), max_seq=max_seq)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts(counters)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            gen_toks, rel, _ = engine.serve_uncertain(
+                model, params, prompts,
+                engine.ServeConfig(max_new_tokens=LM_NEW, fused=fused),
+                device=dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            counts = _launch_counts(counters, f"dense_{arch}_{leg}")
+            # one moments launch a posterior: the prefill's, and each
+            # per-op step's (the fused step reduces the masks itself)
+            expect(f"{arch} {leg}", counts, cfg.n_layers,
+                   LM_NEW if fused is None else 0,
+                   1 if fused is None else 1 + LM_NEW)
+            if fused is None and not fns.fused_live():
+                raise AssertionError(f"{arch}: the fused leg fell back to "
+                                     f"the per-op path")
+            if gen_toks.shape != (LM_BATCH, LM_PROMPT + LM_NEW) \
+                    or not bool(torch.isfinite(rel).all()) \
+                    or not bool(((gen_toks >= 0)
+                                 & (gen_toks < cfg.vocab_size)).all()):
+                raise AssertionError(f"{arch} {leg} output "
+                                     f"{tuple(gen_toks.shape)}, finite "
+                                     f"{bool(torch.isfinite(rel).all())}")
+            step_ms = 1e3 * (secs - prefill_s) / LM_NEW
+            legs[leg] = {"seconds": f"{secs:.4f}",
+                         "prefill_ms": f"{1e3 * prefill_s:.3f}",
+                         "decode_ms_per_step": f"{step_ms:.3f}",
+                         "tokens_per_s": f"{LM_BATCH * LM_NEW / secs:.1f}",
+                         "decode_tokens_per_s":
+                             f"{1e3 * LM_BATCH / step_ms:.1f}",
+                         "launches": counts, "gen": gen_toks}
+            memory_line(arch, leg)
+        same = float((legs["fused"].pop("gen") == legs["per_op"].pop("gen"))
+                     .float().mean())
+        launches = {leg: legs[leg].pop("launches") for leg in legs}
+
+        # ---- one server wave (deepseek-coder-33b) ------------------------
+        wave = None
+        if arch == DENSE_SERVER_ARCH:
+            wave = dense_server_wave(dev, counters, model, params, expect)
+            launches["server"] = wave.pop("launches")
+            memory_line(arch, "server")
+        out["launches"][arch] = launches
+        one, full = recs["one_layer"], recs["full"]
+        _phase(tag, arch=arch, layers=f"{cfg.n_layers}/{cfg.n_layers}",
+               dtype=cfg.dtype, param_gbytes=param_bytes / 1e9,
+               d_model=cfg.d_model, heads=h, kv_heads=hkv, head_dim=dh,
+               rot_dim=int(dh * cfg.rope_pct) // 2 * 2, norm=cfg.norm,
+               activation=cfg.activation, d_ff=cfg.d_ff,
+               vocab=cfg.vocab_size, masks=LM_MASKS, init_s=f"{init_s:.2f}",
+               **{f"{leg}_{k}": v for leg, r in legs.items()
+                  for k, v in r.items()},
+               fused_kernel_ms=full["ms"], fused_bound_ms=full["bound_ms"],
+               fused_step_ms=full["fused_step_ms"],
+               per_op_step_ms=full["per_op_step_ms"],
+               one_layer_kernel_ms=one["ms"],
+               tokens_equal_share_fused_vs_per_op=same,
+               **{f"{k}_launches": {leg: c[k] for leg, c in launches.items()}
+                  for k in ("flash_attention", "fused_decode", "moments")},
+               **({"server": wave} if wave else {}),
+               peak_gbytes=peaks[arch],
+               seconds=f"{time.perf_counter() - t_phase:.1f}")
+        del model, params, prompts, legs, recs
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() - held
+        if left > DENSE_FREED_SLACK:
+            raise AssertionError(f"{arch}: {left / 1e9:.2f} GB still held "
+                                 f"after the model was dropped")
+        _phase("dense_memory", arch=arch, leg="freed",
+               held_gbytes=torch.cuda.memory_allocated() / 1e9)
+    return out
+
+
+def dense_server_wave(dev, counters, model, params, expect) -> dict:
+    """One wave of the server phase's traffic (its first ``SRV_WAVE``
+    requests: prompts of 16-128 tokens, 8-32 new tokens) through an
+    8-slot ``BayesianLMServer`` (fused) on ``model``, run to the end; each
+    admission one flash_attention a layer and one moments launch, one
+    fused_decode launch a decode step; every request complete with finite
+    uncertainties. Returns the run's numbers and launches."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import server
+    cfg = model.cfg
+    scfg = server.ServerConfig(max_slots=SRV_SLOTS, max_prompt_len=LM_PROMPT,
+                               max_new_tokens=LM_NEW, fused=True)
+    wave = server_traffic(cfg.vocab_size)[1][:SRV_WAVE]
+    srv = server.BayesianLMServer(model, params, scfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [srv.submit(toks, max_new_tokens=mnt) for toks, mnt in wave]
+    summary = srv.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = _launch_counts(counters, f"dense_{cfg.arch_id}_server")
+    expect(f"{cfg.arch_id} server wave", got, cfg.n_layers * len(wave),
+           summary.decode_steps, len(wave))
+    for r, (toks, mnt) in zip(rids, wave):
+        st = srv.result(r)
+        if st.status != "done" or len(st.generated) != mnt or not all(
+                math.isfinite(u) for u in st.uncertainty) or not all(
+                0 <= tok < cfg.vocab_size for tok in st.generated):
+            raise AssertionError(f"server wave request {r}: {st.status}, "
+                                 f"{len(st.generated)} of {mnt} tokens")
+    if summary.completed != len(wave) or srv.occupied_slots:
+        raise AssertionError(f"server wave: {summary.completed} completed")
+    ttft = [srv.metrics.timelines[r].ttft for r in rids]
+    pool_bytes = sum(t.numel() * t.element_size() for seg in srv._caches
+                     for c in seg.values() for t in c.values())
+    return {"slots": SRV_SLOTS, "rows": srv.schedule.rows,
+            "max_seq": scfg.max_seq, "requests": len(wave),
+            "steps": summary.decode_steps, "seconds": f"{secs:.4f}",
+            "ms_per_step": f"{1e3 * secs / summary.decode_steps:.3f}",
+            "decode_tokens_per_s": f"{summary.total_tokens / secs:.1f}",
+            "ttft_p50_ms": f"{1e3 * float(np.percentile(ttft, 50)):.3f}",
+            "ttft_p99_ms": f"{1e3 * float(np.percentile(ttft, 99)):.3f}",
+            "pool_mbytes": pool_bytes / 1e6,
+            "peak_gbytes": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": got}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4217,7 +4513,10 @@ def main() -> int:
     # ---- phase 23: the examples --------------------------------------------
     examples = examples_phase(dev, lm_counters)
 
-    # ---- phase 24: the kernels line, then the device line -----------------
+    # ---- phases 24-26: the dense stacks at published widths ---------------
+    dense = dense_phases(dev, time_ms, bound, nbytes, lm_counters)
+
+    # ---- phase 27: the kernels line, then the device line -----------------
     main_launches = {"masked_ffn": launches["per_op"][0],
                      "moments": launches["per_op"][3],
                      "fused_plan_samples": samples_launches,
@@ -4288,6 +4587,16 @@ def main() -> int:
         rec["train_launches"] = trained["launches"].get(rec["name"], 0)
         rec["mesh_launches"] = meshed["launches"].get(rec["name"], 0)
         rec["examples_launches"] = examples["launches"].get(rec["name"], 0)
+        rec["dense_launches"] = {
+            arch: {leg: c.get(rec["name"], 0) for leg, c in legs.items()}
+            for arch, legs in dense["launches"].items()}
+        cases = {"flash_attention": dense["flash_cases"],
+                 "moments": dense["moments_cases"],
+                 "fused_decode": dense["decode_cases"]}.get(rec["name"], {})
+        rec.update({f"{n}_{k}": r[k] for n, r in cases.items()
+                    for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by", "device_ms", "max_abs_err",
+                              "rel_err") if k in r})
         if rec["name"] == "rglru_scan":
             bwd = trained["kernel"]
             main_bwd = bwd["train"]

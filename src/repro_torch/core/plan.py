@@ -1098,11 +1098,22 @@ def _decode_commit_caches(cfg, caches, knew: torch.Tensor,
     return out
 
 
+def _alias(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s memory as a tensor that holds no reference to ``t`` (a view
+    would, through its ``_base``)."""
+    return t.new_empty(0).set_(t.untyped_storage(), t.storage_offset(),
+                               t.shape, t.stride())
+
+
 @functools.lru_cache(maxsize=64)
 def _decode_runner(cfg, expand_masks: bool, device: torch.device):
     """One decode-step executor per (config, expansion, device). The
     flattened parameter tuple is kept for the last ``params`` tree seen
-    (an identity check), so a serving loop flattens once, not per step.
+    (every leaf the same tensor object as at the flattening), so a serving
+    loop flattens once, not per step. The runner outlives the tree (it is
+    cached per config): it keeps the flattening as aliases of the leaves'
+    memory, never the leaves, and drops it when a leaf is freed, so a
+    model the caller lets go is freed whole.
 
     DTensor parameters are taken whole at that flattening, each leaf once
     (``sharding.whole``: gathered to every rank, as GSPMD hands a custom
@@ -1116,6 +1127,19 @@ def _decode_runner(cfg, expand_masks: bool, device: torch.device):
     last: dict[str, Any] = {}
     build_counts[("decode", cfg, expand_masks, device)] += 1
 
+    def flatten(params, leaves, rows: int) -> None:
+        held = tree_lib.tree_map(sharding.whole, params)
+        run.gathered_bytes = sum(sharding.whole_bytes(t) for t in leaves)
+        flat = _decode_flat_params(spec, cfg, held, rows, expand_masks)
+        for fin in last.get("fins", ()):
+            fin.detach()
+        last.clear()
+        last.update(refs=[weakref.ref(t) for t in leaves], rows=rows,
+                    embed={"embed": _alias(held["embed"]["embed"])},
+                    flat=tuple(_alias(t) for t in flat))
+        # the tree's death frees the flattening (aliases hold no leaf)
+        last["fins"] = [weakref.finalize(t, last.clear) for t in leaves]
+
     @torch.no_grad()
     def run(params, caches, tokens, pos):
         from torch.distributed.tensor import DTensor
@@ -1125,13 +1149,11 @@ def _decode_runner(cfg, expand_masks: bool, device: torch.device):
         pos_r = torch.as_tensor(pos, dtype=torch.int32, device=device)
         if pos_r.ndim == 0:
             pos_r = pos_r.expand(rows).contiguous()
-        if last.get("params") is not params or last.get("rows") != rows:
-            held = tree_lib.tree_map(sharding.whole, params)
-            run.gathered_bytes = sum(sharding.whole_bytes(t)
-                                     for t in tree_lib.leaves(params))
-            last.update(params=params, rows=rows, embed=held["embed"],
-                        flat=_decode_flat_params(spec, cfg, held, rows,
-                                                 expand_masks))
+        leaves = tree_lib.leaves(params)
+        refs = last.get("refs", ())
+        if last.get("rows") != rows or len(refs) != len(leaves) or any(
+                r() is not t for r, t in zip(refs, leaves)):
+            flatten(params, leaves, rows)
         if isinstance(caches[0][next(iter(caches[0]))]["k"], DTensor):
             caches = tree_lib.tree_map(sharding.whole, caches)
         x = layers.embed_tokens(last["embed"], tokens[:, 0])

@@ -39,7 +39,10 @@
 // bf16 products are exact in fp32, so the result is the reference's fp32
 // product over bf16 storage but for the order of the sums. fp32 weights take
 // the same loop with 3xTF32 (m16n8k8, both operands split hi/lo), as the
-// IVIM kernels do (dense_tile.cuh). Warp w owns the chunk's 16 columns 16 w
+// IVIM kernels do (dense_tile.cuh). A chunk's products sum in a fresh
+// accumulator, added to the tile's running sums in fp32: the tensor cores
+// truncate what they accumulate, which over all of K drifts past the fp32
+// bars at the dense stacks' widths. Warp w owns the chunk's 16 columns 16 w
 // for both k-halves, so each output has one writer; at a tile's end the
 // block adds the tile to the output with one float4 atomic per four columns.
 // Small or misaligned shapes (no tensor map) take plain copies instead.
@@ -688,11 +691,17 @@ __device__ __forceinline__ Frag frag_offsets(int warp, int lane) {
 }
 
 // The warp's products on one chunk (its 16 columns x 32 k), n-tiles j < nt
-// of its pool rows.
+// of its pool rows, added to acc. The tensor cores truncate the sums they
+// accumulate, so the chunk's products (24 bf16 or 12 tf32 mma) meet in a
+// fresh accumulator, which joins acc by fp32 adds (rounded to nearest):
+// one chain over all of K drifted 6-16e-6 of |mean_logp| at K = 5,120-
+// 24,576 and left deepseek-coder-33b's fresh k/v 2.6 bf16 ulps from the
+// plain version's at full depth (PERF.md); 2.5-4e-7 and one ulp so.
 template <class TW>
 __device__ __forceinline__ void products(float (&acc)[4][4], const char* W, const char* Xp,
                                          int nt, const Frag& f) {
   constexpr int XLD = Tile<TW>::kXLD;
+  float part[4][4] = {};
   if constexpr (Tile<TW>::kPlanes == 3) {
     const bf16* X = (const bf16*)Xp + f.x;
 #pragma unroll
@@ -715,7 +724,7 @@ __device__ __forceinline__ void products(float (&acc)[4][4], const char* W, cons
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (j < nt) mma_bf16(acc[j], af, b[j]);
+          if (j < nt) mma_bf16(part[j], af, b[j]);
       }
     }
   } else {
@@ -732,12 +741,16 @@ __device__ __forceinline__ void products(float (&acc)[4][4], const char* W, cons
         if (j >= nt) break;
         const int e = 8 * j * XLD + 8 * s;
         const unsigned bh[2] = {Xh[e], Xh[e + 4]}, bl[2] = {Xl[e], Xl[e + 4]};
-        mma_tf32(acc[j], al, bh);
-        mma_tf32(acc[j], ah, bl);
-        mma_tf32(acc[j], ah, bh);
+        mma_tf32(part[j], al, bh);
+        mma_tf32(part[j], ah, bl);
+        mma_tf32(part[j], ah, bh);
       }
     }
   }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] += part[j][i];
 }
 
 // The warp's accumulators into the block's shared tile [RG][BLD] (each

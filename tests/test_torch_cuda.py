@@ -993,6 +993,81 @@ def test_flash_attention_backbone_shapes(cuda, dtype, dims, causal):
     _flash_close(got, far.flash_attention_ref(q, k, v, causal=causal), v)
 
 
+#: The dense stacks chip_smoke.py serves whole ([dense_*]), at their
+#: published head layouts: stablelm-12b's head width 160 (a ragged width in
+#: the flash kernel's 256 bucket; a 40-wide rotary part), granite-20b's 48
+#: query heads on one KV head, deepseek-coder-33b's GQA group of 7.
+DENSE_STACKS = ("stablelm-12b", "granite-20b", "deepseek-coder-33b")
+#: fused_decode's mean_logp error over its magnitude (chip_smoke.py
+#: TOL_DECODE_REL: fp32-accurate products; one bf16 part misses it)
+TOL_DECODE_REL = 1e-5
+
+
+@pytest.mark.parametrize("arch", DENSE_STACKS)
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_flash_attention_dense_stack_shapes(cuda, dtype, arch):
+    """The kernel at the dense stacks' prefill [8 prompts x 4 masks, H, 128,
+    dh] over their published KV heads, causal."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as far
+    cfg = registry.get_config(arch)
+    q, k, v = _qkv(32, cfg.n_heads, cfg.n_kv_heads, 128,
+                   cfg.resolved_head_dim, getattr(torch, dtype), cuda,
+                   seed=cfg.n_heads)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=True)
+    assert fa.flash_attention.launches == before + 1
+    _flash_close(got, far.flash_attention_ref(q, k, v, causal=True), v)
+
+
+@pytest.mark.parametrize("arch", DENSE_STACKS)
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_fused_decode_dense_stack_layer(cuda, dtype, arch):
+    """The decode kernel on one layer of each dense stack at its published
+    widths (4 masks x 3 requests), against its plain version: the
+    posteriors within TOL_FWD and mean_logp within TOL_DECODE_REL of its
+    magnitude, the fresh k/v as in test_fused_decode_kernel_matches_plain."""
+    cfg = registry.get_config(arch, n_layers=1, mask_samples=4,
+                              dtype=getattr(torch, dtype))
+    spec, args = _decode_inputs(cfg, cuda)
+    at = next(s for s in spec.steps if s.kind == "attn")
+    assert (at.n_heads, at.n_kv_heads, at.head_dim) == (
+        cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    before = dops.fused_decode.launches
+    got = dops.fused_decode(spec, *args)
+    assert dops.fused_decode.launches == before + 1
+    want = dops.fused_decode_ref(spec, *args)
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=TOL_FWD, atol=TOL_FWD)
+    rel = float((got[0] - want[0]).abs().max() / want[0].abs().max())
+    assert rel <= TOL_DECODE_REL, rel
+    for g, w in zip(got[2:], want[2:]):
+        if g.dtype == torch.bfloat16:
+            _within_bf16_ulp(g, w)
+        else:
+            torch.testing.assert_close(g, w, rtol=TOL_FWD, atol=TOL_FWD)
+
+
+@pytest.mark.parametrize("arch", DENSE_STACKS)
+def test_fused_decode_dense_stack_depth(cuda, arch):
+    """Four bf16 layers of each dense stack at its published widths on
+    chip_smoke.py's pool (8 requests x 4 masks at position 128 of a
+    160-slot cache): every layer's fresh k/v within one bf16 ulp of the
+    plain version's. Summed in one tensor-core chain over K, deepseek-coder-
+    33b's drifted past two ulps from its third layer on (the plain version
+    on the CPU and on the card stay within one ulp of each other at every
+    layer of the 40-layer stablelm-12b)."""
+    cfg = registry.get_config(arch, n_layers=4, mask_samples=4)
+    spec, args = _decode_inputs(cfg, cuda, b=8, plen=128, max_seq=160)
+    got = dops.fused_decode(spec, *args)
+    want = dops.fused_decode_ref(spec, *args)
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=TOL_FWD, atol=TOL_FWD)
+    for g, w in zip(got[2:], want[2:]):
+        for layer in range(g.shape[0]):
+            _within_bf16_ulp(g[layer], w[layer])
+
+
 BACKBONES =("phi3.5-moe-42b-a6.6b", "arctic-480b", "xlstm-350m",
              "qwen2-vl-72b", "hubert-xlarge")
 

@@ -1,10 +1,12 @@
 """Time the fused serving decode step of ``qwen2-1.5b``, masked and packed.
 
-    python3 tools/time_decode_step.py [--src DIR] [--reps N]
+    python3 tools/time_decode_step.py [--src DIR] [--reps N] [--arch A]
 
 At ``chip_smoke.py``'s LM shape (``qwen2-1.5b`` at full width and depth in
 bf16, random weights from seed 0, 4 masks, 8 requests x 128-token prompts,
-32 new tokens) it runs ``serving.engine.serve_uncertain`` with the fused
+32 new tokens; ``--arch`` another dense registry model at its published
+widths and depth, as ``chip_smoke.py``'s ``[dense_*]`` phases serve it)
+it runs ``serving.engine.serve_uncertain`` with the fused
 step twice: with the masked FFN (the default) and with packed FFN serving
 (``packed_ffn_serving=True``, the FFN weights packed per mask: the
 paper's mask-zero skipping). For each it prints ``N`` (default 2)
@@ -31,7 +33,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCH, MASKS, BATCH, PROMPT, NEW = "qwen2-1.5b", 4, 8, 128, 32
+MASKS, BATCH, PROMPT, NEW = 4, 8, 128, 32
 
 
 def main() -> int:
@@ -44,6 +46,8 @@ def main() -> int:
                     help="directory holding the repro_torch package")
     ap.add_argument("--reps", type=int, default=2,
                     help="timed serve_uncertain runs a form")
+    ap.add_argument("--arch", default="qwen2-1.5b",
+                    help="registry model (a dense one: the fused step)")
     ns = ap.parse_args()
     sys.path.insert(0, str(ns.src.resolve()))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -59,7 +63,7 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0],
           flush=True)
     dev = torch.device("cuda", torch.cuda.current_device())
-    cfg = registry.get_config(ARCH, mask_samples=MASKS)
+    cfg = registry.get_config(ns.arch, mask_samples=MASKS)
     params = lm_model.build_model(cfg).init(
         torch.Generator(dev).manual_seed(0), device=dev)
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device=dev,
@@ -112,7 +116,7 @@ def main() -> int:
                 raise AssertionError(f"{form}: {fd_ops.fused_decode.launches} "
                                      f"fused_decode launches, expected {NEW}")
             step_ms = 1e3 * (secs - prefill_s) / NEW
-            print(f"[step] src={ns.src} form={form} "
+            print(f"[step] src={ns.src} arch={ns.arch} form={form} "
                   f"decode_ms_per_step={step_ms:.3f} "
                   f"decode_tokens_per_s={1e3 * BATCH / step_ms:.1f} "
                   f"kernel_ms={kernel_ms:.4f} prefill_s={prefill_s:.4f}",
