@@ -61,7 +61,11 @@ and read just after:
   ``data.lm_batch`` batches of 4 x 2,048 tokens (AdamW, grad_accum 2 with
   int8 error feedback, Adafactor), a ``Trainer`` cut and resumed from its
   checkpoints, and ``recurrentgemma-2b`` at 3 layers, whose RG-LRU scan
-  trains through the ``rglru_scan`` kernels (forward and backward).
+  trains through the ``rglru_scan`` kernels (forward and backward); then
+  the MoE, xLSTM, audio-encoder and M-RoPE families at their published
+  widths (phi3.5-moe 8 layers, arctic-480b 1, xlstm-350m 24, hubert-xlarge
+  48, qwen2-vl-72b 8), each with the optimizer its published config picks,
+  and each held in fp32 to the CPU at one layer.
 * The mesh layer, in a world of 1 (NCCL refuses two ranks on one card):
   the same qwen2-1.5b training step on DTensors over a (1, 1)
   ``("data", "model")`` ``DeviceMesh`` (``distributed.sharding``), the
@@ -221,6 +225,20 @@ Phases, each on its own line; any failure raises and exits nonzero:
      scan's backward kernel against autograd through the plain version,
      with its share of the byte bound (two launches at the long shape
      bit-equal);
+ 17b. the five families that had trained only on the CPU
+     (``family_train_phases``): ``[train_moe]`` phi3.5-moe at 8 of 32
+     layers, ``[train_arctic]`` arctic-480b at 1 of 35,
+     ``[train_xlstm]`` xlstm-350m at 24 (S 1,024, B 4),
+     ``[train_encoder]`` hubert-xlarge at 48 on frame embeddings,
+     ``[train_vlm]`` qwen2-vl-72b at 8 of 80, published widths, bf16,
+     B x S = 4,096 tokens, 5 steps each with the optimizer the published
+     config picks (Adafactor without the global clip for the three large
+     models), ms a step, tokens/s, losses, gnorms, peak memory and the
+     optimizer printed; finite losses, moved weights, no kernel launch, a
+     peak under the card's memory and the memory freed after asserted;
+     ``[train_family_agreement]`` one fp32 forward and backward of each at
+     one layer (xlstm one repeat, hubert 2), card against CPU: loss,
+     moe_aux and every gradient leaf;
  18-22. the mesh layer (``mesh_phases``), each phase in a one-rank NCCL
      group of its own: ``[train_sharded]`` qwen2-1.5b at [train]'s size,
      state laid out by ``param_shardings`` and batches by
@@ -271,7 +289,8 @@ Phases, each on its own line; any failure raises and exits nonzero:
      router's launches as ``server_launches``, ``router_launches`` and
      ``router_faulted_launches``, the backbone phases' as
      ``backbone_launches`` by architecture, the training runs' as
-     ``train_launches``, the mesh phases' as ``mesh_launches``, the
+     ``train_launches``, the five families' training as
+     ``family_train_launches``, the mesh phases' as ``mesh_launches``, the
      examples' as ``examples_launches``, the dense stacks' as
      ``dense_launches`` by model and leg, and their kernel cases as
      ``<model>_<case>_<field>``; the scan's backward as
@@ -514,6 +533,61 @@ TRAIN_HY_SCAN_LAUNCHES, TRAIN_HY_SCAN_BACKWARD = 6, 2
 TRAIN_KERNEL_SHAPES = (("train", (8, 1024, 2560)), ("served", (32, 128, 2560)),
                        ("long", (4, 4096, 2560)))
 TOL_SCAN_BWD_REL = 1e-5
+# the five families that had trained only on the CPU (phase 17b,
+# ``family_train_phases``), each at its published widths, bf16, 4 masks,
+# remat "full", random weights (seed 0), ``lm_batch`` data (hubert: frame
+# embeddings), FAMILY_STEPS steps at lr 3e-4 (warmup 2), with the
+# optimizer its PUBLISHED config picks (``dryrun.pick_optimizer`` of
+# ``registry.get_config(arch)``: Adafactor without the global clip above
+# 40B parameters, AdamW below; the cut config alone would give AdamW, at
+# 12 bytes a parameter). (tag, arch, layers, batch, sequence); depth cut to
+# fit one card, reckoned at 4 bytes a parameter under Adafactor (bf16
+# weights and gradients; the factored moments are small) and 12 under
+# AdamW (and fp32 moments): phi3.5 8 of 32 layers (10.66B, 42.7 GB),
+# arctic 1 of 35 (14.07B, 56.3 GB), xlstm all 24 (0.25B, 3.0 GB), hubert
+# all 48 (0.95B, 11.4 GB), qwen2-vl 8 of 80 (9.52B, 38.1 GB). S is
+# train_4k's 4,096 but for xlstm: its six sLSTM layers loop over time on
+# the host, and a warm step at S 4,096 took 75.1 s on an H100 80GB HBM3
+# (tools/probe_family_train.py); it runs S 1,024 at B 4, the same 4,096
+# tokens. The step's ms is the median of steps 3-5. At B 1 every step's
+# rows take mask 0 (``mask_ids_for_batch(1, 4)``): those phases train one
+# mask of four, and the hidden units mask 0 drops get no gradient; xlstm
+# at B 4 trains all four. The model's memory must come back once it is
+# dropped (DENSE_FREED_SLACK).
+FAMILY_TRAIN = (("train_moe", "phi3.5-moe-42b-a6.6b", 8, 1, 4096),
+                ("train_arctic", "arctic-480b", 1, 1, 4096),
+                ("train_xlstm", "xlstm-350m", 24, 4, 1024),
+                ("train_encoder", "hubert-xlarge", 48, 1, 4096),
+                ("train_vlm", "qwen2-vl-72b", 8, 1, 4096))
+FAMILY_STEPS = 5
+FAMILY_OPT = dict(lr=3e-4, warmup_steps=2, decay_steps=20)
+# did the weights move: FAMILY_SAMPLE elements of each leaf at random
+# (seed 1) compared before and after the steps. A sampled element of a
+# hidden unit that no step's mask keeps must not move (its gradient is
+# zero, its update too); of every leaf whose sampled values sit at or
+# under FAMILY_MOVE_SCALE (the weights, zero-initialised biases), some
+# element of a kept unit must move in every layer slice and in every
+# block of Adafactor's blocked update (``optimizers._row_blocks``). A
+# bf16 value near 1 (a norm's scale) moves only past half an ulp, 2^-9,
+# which five steps at lr <= 3e-4 and |update| ~1 do not reach
+FAMILY_SAMPLE = 1 << 16
+FAMILY_MOVE_SCALE = 0.1
+# [train_family_agreement]: one fp32 forward and backward per family at
+# published widths and one layer (xlstm one repeat, m m m s; hubert 2
+# layers), B 4 x S 64, TF32 off, card against CPU from one state: the
+# loss, moe_aux and every gradient leaf (torch.autograd.grad on each side)
+# held to TOL_TRAIN_AGREE (loss 1e-5, gradients 1e-4 of each leaf's
+# largest), xlstm to its CPU test's bars (its exponential gates). Where one
+# side's fp32 parameters and gradients would pass 16 GB of host memory,
+# the expert count (arctic: 8 of 128) or the vocabulary (qwen2-vl:
+# 32,768) is cut, all else published
+FAMILY_AGREE = (("phi3.5-moe-42b-a6.6b", dict(n_layers=1)),
+                ("arctic-480b", dict(n_layers=1, n_experts=8)),
+                ("xlstm-350m", dict(n_layers=4)),
+                ("hubert-xlarge", dict(n_layers=2)),
+                ("qwen2-vl-72b", dict(n_layers=1, vocab_size=32768)))
+FAMILY_AGREE_B, FAMILY_AGREE_S = 4, 64
+TOL_XLSTM_AGREE = {"loss": 1e-4, "grad": 5e-4}
 # the mesh layer (phases 18-22). NCCL refuses two ranks on one device, so
 # the card runs a world of 1: a (1, 1) ("data", "model") mesh over an NCCL
 # group (file:// rendezvous, 60 s timeout), each phase in a group of its
@@ -3226,6 +3300,342 @@ def train_phases(dev, time_ms, bound, counters) -> dict:
             "kernel": kernel, "train": train, "hybrid": hy}
 
 
+def _family_sample(params, dev) -> dict:
+    """{leaf path: (flat indices, values)}: FAMILY_SAMPLE elements of each
+    leaf but the masks at random (seed 1), to see them move."""
+    import torch
+    from repro_torch.core import tree as tree_lib
+    gen = torch.Generator(dev).manual_seed(1)
+    watch = {}
+    for p, t in tree_lib.flatten_with_path(params):
+        if "masks" in p:
+            continue
+        n = t.numel()
+        idx = (torch.arange(n, device=t.device) if n <= FAMILY_SAMPLE
+               else torch.randint(n, (FAMILY_SAMPLE,), generator=gen,
+                                  device=t.device).sort().values)
+        watch[p] = (idx, t.reshape(-1)[idx].clone())
+    return watch
+
+
+def _leaf_masks(params, path):
+    """The Masksembles masks over the hidden units of the leaf at ``path``
+    (its own dict's, as an MoE's experts have, or its layer's, as an FFN's
+    ``wg/w``), or None."""
+    node, nodes = params, [params]
+    for k in path[:-1]:
+        node = node[k]
+        nodes.append(node)
+    for owner in (nodes[-1], nodes[-2]):
+        if isinstance(owner, dict) and "masks" in owner:
+            return owner["masks"]
+    return None
+
+
+def _moved_check(tag: str, params, watch: dict, used_masks, unread) -> dict:
+    """Hold the sampled elements of ``watch`` after the steps to
+    FAMILY_SAMPLE's rules: none of a dropped hidden unit moved; of every
+    leaf read by the batch whose sampled values sit at or under
+    FAMILY_MOVE_SCALE, an element of a kept unit moved in each layer slice
+    and each block of the blocked update. ``used_masks`` are the mask ids
+    the steps' rows took. Returns the counts; raises on a breach. A
+    function, so that nothing of ``params`` outlives the call."""
+    import torch
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.optim import optimizers
+    kept_n = kept_moved = dropped_n = masked_leaves = blocks = 0
+    not_required = []
+    for p, t in tree_lib.flatten_with_path(params):
+        if p not in watch:
+            continue
+        idx, before = watch[p]
+        moved = t.reshape(-1)[idx] != before
+        coords = torch.unravel_index(idx, t.shape)
+        stacked = p[0] == "segments" and t.ndim >= 2
+        kept = torch.ones_like(moved)
+        masks = _leaf_masks(params, p)
+        if masks is not None and t.ndim >= 1:
+            f = masks.shape[-1]
+            axis = (-1 if t.shape[-1] == f and (t.ndim < 2
+                                                or t.shape[-2] != f)
+                    else -2 if t.ndim >= 2 and t.shape[-2] == f
+                    and t.shape[-1] != f else None)
+            if axis is not None:
+                keep = masks[..., used_masks, :].amax(-2) != 0
+                unit = coords[t.ndim + axis]
+                kept = (keep[coords[0], unit] if keep.ndim == 2
+                        else keep[unit])
+                masked_leaves += 1
+        dropped = int((moved & ~kept).sum())
+        if dropped:
+            raise AssertionError(f"[{tag}] {p}: {dropped} sampled elements "
+                                 f"of hidden units no mask keeps moved")
+        dropped_n += int((~kept).sum())
+        name = "/".join(map(str, p))
+        if p in unread or float(before.float().abs().median()) \
+                > FAMILY_MOVE_SCALE:
+            not_required.append(name)
+            continue
+        kept_n += int(kept.sum())
+        kept_moved += int((moved & kept).sum())
+        # the slices each must move in: the layer, and, where a factored
+        # slice passes _CHUNK_ELEMS, the blocked update's block of it
+        layer = coords[0] if stacked else torch.zeros_like(idx)
+        block = torch.zeros_like(idx)
+        per = t[0] if stacked else t
+        if (optimizers._factored(per.shape)
+                and per.numel() > optimizers._CHUNK_ELEMS):
+            r, c = per.shape[-2:]
+            n = per.numel() // (r * c)
+            table = torch.empty((n, r), dtype=torch.long, device=t.device)
+            for i, (n0, n1, r0, r1) in enumerate(optimizers._row_blocks(
+                    n, r, c, optimizers._CHUNK_ELEMS)):
+                table[n0:n1, r0:r1] = i
+            within = idx % per.numel()
+            block = table[within // (r * c), (within // c) % r]
+        slot = layer * (int(block.max()) + 1) + block
+        n_slots = int(slot.max()) + 1
+        seen = torch.zeros(n_slots, device=t.device).index_add_(
+            0, slot[kept], torch.ones_like(slot[kept], dtype=torch.float))
+        hit = torch.zeros(n_slots, device=t.device).index_add_(
+            0, slot[moved & kept],
+            torch.ones_like(slot[moved & kept], dtype=torch.float))
+        blocks += int((seen > 0).sum())
+        still = ((seen > 0) & (hit == 0)).nonzero().flatten().tolist()
+        if still:
+            raise AssertionError(f"[{tag}] {p}: no sampled element moved in "
+                                 f"(layer, block) slots {still[:8]} of "
+                                 f"{n_slots}")
+    return {"moved_share": kept_moved / max(kept_n, 1),
+            "sampled_kept": kept_n, "sampled_dropped": dropped_n,
+            "masked_leaves": masked_leaves, "slots_checked": blocks,
+            "not_required": not_required}
+
+
+def family_loss_and_grads(model, params, batch):
+    """(loss, moe_aux, the gradient of every leaf of ``params`` or None
+    where the loss does not read it): one forward and backward of
+    ``Model.loss`` through ``torch.autograd.grad``."""
+    import torch
+    from repro_torch.core import tree as tree_lib
+    leaves = tree_lib.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, metrics = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    for p in leaves:
+        p.requires_grad_(False)
+    return float(loss.detach()), float(metrics["moe_aux"].detach()), grads
+
+
+def family_train_phases(dev, counters) -> dict:
+    """Phase 17b: the MoE, xLSTM, audio-encoder and M-RoPE families
+    trained on the card at their published widths (``FAMILY_TRAIN``),
+    through ``train_state_init``, ``lm_batch``, ``build_optimizer`` and
+    ``make_train_step``, one model at a time. Each ``[train_<tag>]`` line:
+    the optimizer its published config picks, ms a step, tokens/s, the
+    losses and gnorms, peak memory, the share of sampled weights of kept
+    hidden units that moved; asserted: finite losses and gnorms, the
+    weights moved by FAMILY_SAMPLE's rules, no kernel launched (training bypasses every kernel but
+    ``rglru_scan``, and these families have no RG-LRU), peak under the
+    card's memory, the memory back once the model is dropped. Then
+    ``[train_family_agreement]``: one fp32 forward and backward per family
+    on the card against the CPU (``FAMILY_AGREE``). ``counters`` in
+    ``KERNEL_NAMES`` order. Returns the runs' records and their launches
+    by kernel."""
+    import gc
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core import masksembles
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as lm_model
+    from repro_torch.optim import OptimizerConfig, build_optimizer
+    from repro_torch.train import TrainConfig, make_train_step, \
+        train_state_init
+
+    t_phases = time.perf_counter()
+    train_seq = SHAPES["train_4k"].seq_len
+    totals = dict.fromkeys(KERNEL_NAMES, 0)
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    out = {"runs": {}, "agreement": {}}
+
+    def data_for(cfg, b, s, dtype):
+        return LMDataConfig(
+            vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
+            family="audio" if cfg.family == "audio" else "dense",
+            d_model=cfg.d_model, dtype=dtype)
+
+    for tag, arch, layers, b, s in FAMILY_TRAIN:
+        t_phase = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        published = registry.get_config(arch)
+        cfg = registry.get_config(arch, mask_samples=LM_MASKS, remat="full",
+                                  n_layers=layers)
+        if cfg.dtype != torch.bfloat16:
+            raise AssertionError(f"{arch}: {cfg.dtype}")
+        pick = dryrun.pick_optimizer(published)
+        model = lm_model.build_model(cfg)
+        opt = build_optimizer(OptimizerConfig(
+            name=pick.name, clip_norm=pick.clip_norm, **FAMILY_OPT))
+        t0 = time.perf_counter()
+        state = train_state_init(model, opt,
+                                 torch.Generator(dev).manual_seed(0),
+                                 device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        resident = sum(t.numel() * t.element_size()
+                       for t in tree_lib.leaves(state))
+        n_params = sum(t.numel() for p, t in tree_lib.flatten_with_path(
+            state["params"]) if "masks" not in p)
+        step_fn = make_train_step(model, opt, TrainConfig())
+        data = data_for(cfg, b, s, cfg.dtype)
+        watch = _family_sample(state["params"], dev)
+        losses, gnorms, secs = [], [], []
+        run_counts = dict.fromkeys(KERNEL_NAMES, 0)
+        for step in range(FAMILY_STEPS):
+            batch = lm_batch(data, step, dev)
+            _reset_counts(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            counts = _launch_counts(counters, "train")
+            for name, n in counts.items():
+                totals[name] += n
+                run_counts[name] += n
+            if any(counts.values()):
+                raise AssertionError(f"[{tag}] step {step}: kernel "
+                                     f"launches {counts}; training takes "
+                                     f"none of them")
+            losses.append(loss)
+            gnorms.append(float(metrics["gnorm"]))
+            aux = float(metrics["moe_aux"])
+            if not all(math.isfinite(x) for x in (loss, gnorms[-1], aux)):
+                raise AssertionError(f"[{tag}] step {step}: loss {loss}, "
+                                     f"gnorm {gnorms[-1]}, moe_aux {aux}")
+        peak = torch.cuda.max_memory_allocated()
+        used = sorted(set(masksembles.mask_ids_for_batch(
+            b, cfg.mask_samples).tolist()))
+        unread = {("embed", "embed")} if cfg.family == "audio" else set()
+        moved = _moved_check(tag, state["params"], watch, used, unread)
+        if not peak < card_bytes:
+            raise AssertionError(f"[{tag}] peak {peak / 1e9:.1f} GB of "
+                                 f"{card_bytes / 1e9:.1f}")
+        step_s = statistics.median(secs[TRAIN_WARM:])
+        active = cfg.active_param_count()
+        cuts = ([f"depth {layers} of {published.n_layers}"]
+                if layers < published.n_layers else []) + (
+            [f"seq {s} of {train_seq} at B {b} (the sLSTM's time loop runs "
+             f"on the host)"] if s < train_seq else [])
+        rec = {"arch": arch, "layers": f"{layers}/{published.n_layers}",
+               "batch": b, "seq": s, "cut": "; ".join(cuts) or "none",
+               "optimizer": pick.name, "clip_norm": pick.clip_norm,
+               "cut_config_pick": dryrun.pick_optimizer(cfg).name,
+               "lr": FAMILY_OPT["lr"], "params": n_params,
+               "active_params": active,
+               "resident_gb": resident / 1e9, "init_s": f"{init_s:.2f}",
+               "ms_per_step": 1e3 * step_s, "tokens_per_s": b * s / step_s,
+               "first_step_s": secs[0],
+               "step_s": [round(x, 3) for x in secs],
+               "losses": [round(x, 4) for x in losses],
+               "gnorms": [round(x, 4) for x in gnorms],
+               "moe_aux_last": aux, "peak_gb": peak / 1e9,
+               "masks_trained": used, **moved,
+               "model_tflop_per_step": 6 * active * b * s / 1e12,
+               "model_flops_share": 6 * active * b * s
+               / (step_s * BF16_PEAK), "launches": run_counts}
+        del state, watch, step_fn, batch, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() - held
+        if left > DENSE_FREED_SLACK:
+            raise AssertionError(f"[{tag}] {left / 1e9:.2f} GB still held "
+                                 f"after the model was dropped")
+        rec["freed_held_gb"] = torch.cuda.memory_allocated() / 1e9
+        rec["seconds"] = f"{time.perf_counter() - t_phase:.1f}"
+        _phase(tag, **rec)
+        out["runs"][tag] = rec
+
+    # ---- [train_family_agreement]: fp32, card against CPU -----------------
+    t_agree = time.perf_counter()
+    for arch, cut in FAMILY_AGREE:
+        published = registry.get_config(arch)
+        cfg = registry.get_config(arch, mask_samples=LM_MASKS, remat="full",
+                                  dtype=torch.float32, **cut)
+        model = lm_model.build_model(cfg)
+        cpu_params = model.init(torch.Generator().manual_seed(0),
+                                device="cpu")
+        card_params = tree_lib.tree_map(lambda t: t.to(dev, copy=True),
+                                        cpu_params)
+        data = data_for(cfg, FAMILY_AGREE_B, FAMILY_AGREE_S, torch.float32)
+
+        _reset_counts(counters)
+        card = family_loss_and_grads(model, card_params,
+                                     lm_batch(data, 0, dev))
+        counts = _launch_counts(counters, "train")
+        for name, n in counts.items():
+            totals[name] += n
+        if any(counts.values()):
+            raise AssertionError(f"[train_family_agreement] {arch}: kernel "
+                                 f"launches {counts}")
+        cpu = family_loss_and_grads(model, cpu_params,
+                                    lm_batch(data, 0, "cpu"))
+        tol = TOL_XLSTM_AGREE if cfg.family == "ssm" else TOL_TRAIN_AGREE
+        loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+        aux_rel = abs(card[1] - cpu[1]) / max(abs(cpu[1]), 1e-30)
+        grad_rel, grad_at, unused = 0.0, None, []
+        for path, g_card, g_cpu in zip(
+                (p for p, _ in tree_lib.flatten_with_path(cpu_params)),
+                card[2], cpu[2]):
+            if g_card is None or g_cpu is None:
+                if (g_card is None) != (g_cpu is None):
+                    raise AssertionError(f"[train_family_agreement] {arch} "
+                                         f"{path}: a gradient on one side "
+                                         f"only")
+                unused.append(path)
+                continue
+            scale = float(g_cpu.abs().max())
+            if scale > 0:
+                r = float((g_card.cpu() - g_cpu).abs().max()) / scale
+                if r > grad_rel:
+                    grad_rel, grad_at = r, path
+        n_leaves = len(card[2])
+        del card_params, cpu_params, card, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+        cuts = {k: f"{v} of {getattr(published, k)}" for k, v in cut.items()
+                if v != getattr(published, k)}
+        rec = {"arch": arch, "dtype": cfg.dtype, "batch": FAMILY_AGREE_B,
+               "seq": FAMILY_AGREE_S, "cut": cuts, "loss_rel": loss_rel,
+               "moe_aux_rel": aux_rel if cfg.n_experts else "n/a",
+               "grad_rel": grad_rel, "grad_worst_leaf": grad_at,
+               "leaves": n_leaves, "unused_leaves": unused,
+               "bars": tol}
+        _phase("train_family_agreement", **rec)
+        if (loss_rel > tol["loss"] or grad_rel > tol["grad"]
+                or (cfg.n_experts and aux_rel > tol["loss"])):
+            raise AssertionError(f"[train_family_agreement] {arch}: loss "
+                                 f"{loss_rel:.3g}, moe_aux {aux_rel:.3g}, "
+                                 f"gradient {grad_rel:.3g} at {grad_at} "
+                                 f"(bars {tol})")
+        out["agreement"][arch] = rec
+    _phase("train_family_summary",
+           seconds=f"{time.perf_counter() - t_phases:.1f}",
+           agreement_seconds=f"{time.perf_counter() - t_agree:.1f}",
+           launches=totals)
+    out["launches"] = totals
+    return out
+
+
 def mesh_phases(dev, time_ms, counters) -> dict:
     """Phases 18-22: the mesh layer on the card, a world of 1 (NCCL; gloo
     when rehearsed on the CPU). ``[train_sharded]``: qwen2-1.5b at
@@ -4507,6 +4917,9 @@ def main() -> int:
     # ---- phases 13-17: LM training -----------------------------------------
     trained = train_phases(dev, time_ms, bound, lm_counters)
 
+    # ---- phase 17b: the MoE, xLSTM, encoder and M-RoPE families trained --
+    families = family_train_phases(dev, lm_counters)
+
     # ---- phases 18-22: the mesh layer --------------------------------------
     meshed = mesh_phases(dev, time_ms, lm_counters)
 
@@ -4585,6 +4998,8 @@ def main() -> int:
         if rec["name"] == "flash_attention":     # and the fp32 ones by path
             rec["f32_launches"] = dict(FLASH_F32_LAUNCHES)
         rec["train_launches"] = trained["launches"].get(rec["name"], 0)
+        rec["family_train_launches"] = families["launches"].get(
+            rec["name"], 0)
         rec["mesh_launches"] = meshed["launches"].get(rec["name"], 0)
         rec["examples_launches"] = examples["launches"].get(rec["name"], 0)
         rec["dense_launches"] = {

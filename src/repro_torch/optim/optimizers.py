@@ -20,7 +20,14 @@ through ``"masks"`` (the Masksembles constants) are never
 updated or decayed, but their gradients count in the clip's norm, as in
 the reference. Stacked leaves (``ndim >= 3``, more than one repeat) are
 updated one layer slice at a time, as the reference's ``lax.map`` does:
-Adafactor's row-mean and RMS clip are per slice, not per stack.
+Adafactor's row-mean and RMS clip are per slice, not per stack. A factored
+slice of more than ``_CHUNK_ELEMS`` elements whose whole-slice update would
+not fit (on the card: its fp32 temporaries against the free memory, as at
+arctic-480b's one-layer expert stack, [128, 7168, 4864]; on the host:
+always) is updated a block of rows at a time, in three passes (the moments,
+the RMS of the whole slice's update, the step), so that its fp32
+temporaries size with one block: the clip still spans the whole slice, as
+in the reference.
 
 Divisions whose both sides are tensors stay true divisions on the card
 (CUDA divides by a Python number as a multiply by its reciprocal).
@@ -116,6 +123,43 @@ def _slices(*leaves: torch.Tensor):
             yield tuple(t[i] for t in leaves)
     else:
         yield leaves
+
+
+#: Factored slices above this many elements take Adafactor's blocked update
+#: where the whole-slice form does not fit, in blocks of at most this many
+#: (1 GB an fp32 block).
+_CHUNK_ELEMS = 1 << 28
+#: Bytes of fp32 temporaries the whole-slice update holds at once, per
+#: element of the slice: eight copies (25.5 measured at qwen2-vl-72b's
+#: [152064, 8192] embedding on an H100).
+_WHOLE_BYTES = 32
+
+
+def _whole_fits(numel: int, device: torch.device) -> bool:
+    """Whether a factored slice of ``numel`` elements takes the whole-slice
+    update: at most ``_CHUNK_ELEMS``, or, on the card, temporaries that fit
+    in the memory it has free (the caching allocator's free blocks
+    included). A larger slice on the host takes the blocked update."""
+    if numel <= _CHUNK_ELEMS:
+        return True
+    if device.type != "cuda":
+        return False
+    free, _ = torch.cuda.mem_get_info(device)
+    free += (torch.cuda.memory_reserved(device)
+             - torch.cuda.memory_allocated(device))
+    return _WHOLE_BYTES * numel <= free
+
+
+def _row_blocks(n: int, r: int, c: int, limit: int):
+    """Blocks (n0, n1, r0, r1) covering an [n, r, c] slice, each at most
+    ``limit`` elements (or one row): whole [r, c] matrices where one fits,
+    else row ranges of one matrix."""
+    if r * c <= limit:
+        step = max(1, limit // (r * c))
+        return [(i, min(i + step, n), 0, r) for i in range(0, n, step)]
+    rows = max(1, limit // c)
+    return [(i, i + 1, j, min(j + rows, r))
+            for i in range(n) for j in range(0, r, rows)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,15 +258,54 @@ def adafactor(cfg: OptimizerConfig) -> Optimizer:
         c = step.float()
         beta2 = 1.0 - torch.pow(c, -0.8)   # Adafactor's decaying beta2
 
-        def finish(p, u):
-            # update clipping (RMS <= 1) as in the Adafactor paper
-            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+        def step_by(p, u, rms):
             u = u / torch.clamp(rms, min=1.0)
             pf = p.float()
             u = u + cfg.weight_decay * pf
             p.copy_((pf - lr * u).to(p.dtype))
 
+        def finish(p, u):
+            # update clipping (RMS <= 1) as in the Adafactor paper
+            step_by(p, u, torch.sqrt(torch.mean(u * u) + 1e-30))
+
+        def blocked_factored(p, g, vr, vc):
+            # the moments a block at a time (vc from the column sums of
+            # every block), then the update's sum of squares over the
+            # whole slice, then the step: each block's update is computed
+            # twice rather than held
+            r, c = p.shape[-2:]
+            p3, g3 = p.view(-1, r, c), g.reshape(-1, r, c)
+            vr2, vc2 = vr.view(-1, r), vc.view(-1, c)
+            blocks = _row_blocks(p3.shape[0], r, c, _CHUNK_ELEMS)
+            cols = torch.zeros_like(vc2)
+            for n0, n1, r0, r1 in blocks:
+                gb = g3[n0:n1, r0:r1].float()
+                g2 = gb * gb + 1e-30
+                rows = vr2[n0:n1, r0:r1]
+                rows.copy_(beta2 * rows + (1 - beta2) * torch.mean(g2, -1))
+                cols[n0:n1] += g2.sum(-2)
+                del gb, g2
+            vc2.copy_(beta2 * vc2 + (1 - beta2) * (cols / r))
+            scale = vr2 / torch.mean(vr2, -1, keepdim=True)
+
+            def update(n0, n1, r0, r1):
+                denom = scale[n0:n1, r0:r1, None] * vc2[n0:n1, None, :]
+                return g3[n0:n1, r0:r1].float() * torch.rsqrt(denom
+                                                              + cfg.eps)
+
+            sq = torch.zeros((), dtype=torch.float32, device=p.device)
+            for blk in blocks:
+                u = update(*blk)
+                sq += torch.sum(u * u)
+                del u
+            rms = torch.sqrt(sq / p.numel() + 1e-30)
+            for n0, n1, r0, r1 in blocks:
+                step_by(p3[n0:n1, r0:r1], update(n0, n1, r0, r1), rms)
+
         def one_factored(p, g, vr, vc):
+            if not _whole_fits(p.numel(), p.device):
+                blocked_factored(p, g, vr, vc)
+                return
             g = g.float()
             g2 = g * g + 1e-30
             vr.copy_(beta2 * vr + (1 - beta2) * torch.mean(g2, -1))

@@ -19,6 +19,8 @@ to the reference's own kernel-vs-ref bar (tests/test_kernels.py: mean rtol
 """
 
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -38,6 +40,9 @@ from repro_torch.kernels.masked_ffn import ref as mref
 from repro_torch.kernels.moments import ops as moops
 from repro_torch.kernels.moments import ref as moref
 from repro_torch.serving import engine, server
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import chip_smoke  # noqa: E402  (its tables and helpers; it imports no torch)
 
 TOL_FWD = 1e-4
 TOL_MOMENTS = 2e-4
@@ -1809,6 +1814,106 @@ def test_qwen_bf16_train_step_on_card_matches_cpu(cuda):
         assert rel[key] <= TOL_BF16_STEP[key], (key, rel)
     assert grad_rel[worst] <= TOL_BF16_GRAD, (worst, grad_rel)
     assert param_use <= 1.0
+
+
+@pytest.mark.parametrize("arch", sorted(dict(chip_smoke.FAMILY_AGREE)))
+def test_family_train_step_on_card_matches_cpu(cuda, arch):
+    """One fp32 layer of each family that had trained only on the CPU, at
+    its published widths cut as chip_smoke.py's [train_family_agreement]
+    cuts it (``FAMILY_AGREE``): one forward and backward of ``Model.loss``
+    (remat "full", 4 masks, B 4 x S 64 of ``lm_batch`` data) on the card and
+    on the CPU from one state, loss and moe_aux within its loss bar, every
+    gradient leaf within its gradient bar of the leaf's largest magnitude
+    (``TOL_TRAIN_AGREE``; xlstm ``TOL_XLSTM_AGREE``, its exponential
+    gates; hubert's input embedding unused on both sides). Then one whole
+    train step on the card with the optimizer the published config picks
+    (Adafactor without the global clip for phi3.5, arctic and qwen2-vl):
+    its loss is the same forward's, and the parameters stay finite."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.optim import OptimizerConfig, build_optimizer
+    from repro_torch.train import TrainConfig as LmTrainConfig
+    from repro_torch.train import make_train_step
+    cfg = registry.get_config(arch, mask_samples=4, remat="full",
+                              dtype=torch.float32,
+                              **dict(chip_smoke.FAMILY_AGREE)[arch])
+    model = lm_model.build_model(cfg)
+    data = LMDataConfig(vocab_size=cfg.vocab_size,
+                        seq_len=chip_smoke.FAMILY_AGREE_S,
+                        global_batch=chip_smoke.FAMILY_AGREE_B,
+                        family="audio" if cfg.family == "audio" else "dense",
+                        d_model=cfg.d_model)
+    cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
+    card = tree_lib.tree_map(lambda t: t.to(cuda, copy=True), cpu)
+    l_card, a_card, g_card = chip_smoke.family_loss_and_grads(
+        model, card, lm_batch(data, 0, cuda))
+    l_cpu, a_cpu, g_cpu = chip_smoke.family_loss_and_grads(
+        model, cpu, lm_batch(data, 0, "cpu"))
+    tol = (chip_smoke.TOL_XLSTM_AGREE if cfg.family == "ssm"
+           else chip_smoke.TOL_TRAIN_AGREE)
+    assert abs(l_card - l_cpu) <= tol["loss"] * abs(l_cpu), (l_card, l_cpu)
+    assert abs(a_card - a_cpu) <= tol["loss"] * abs(a_cpu), (a_card, a_cpu)
+    assert (a_cpu > 0) == bool(cfg.n_experts)
+    paths = [p for p, _ in tree_lib.flatten_with_path(cpu)]
+    for path, gc, gw in zip(paths, g_card, g_cpu):
+        if gw is None:
+            assert gc is None and path == ("embed", "embed"), path
+            assert cfg.family == "audio"
+            continue
+        scale = float(gw.abs().max())
+        err = float((gc.cpu() - gw).abs().max())
+        assert err <= tol["grad"] * scale, (path, err, scale)
+    del g_card, g_cpu, cpu
+    pick = dryrun.pick_optimizer(registry.get_config(arch))
+    opt = build_optimizer(OptimizerConfig(
+        name=pick.name, clip_norm=pick.clip_norm, lr=3e-4, warmup_steps=2))
+    state = {"params": card, "opt": opt.init(card)}
+    state, metrics = make_train_step(model, opt, LmTrainConfig())(
+        state, lm_batch(data, 0, cuda))
+    assert float(metrics["loss"]) == pytest.approx(l_card, rel=1e-6)
+    assert all(bool(torch.isfinite(t).all())
+               for t in tree_lib.leaves(state["params"]))
+
+
+def test_arctic_layer_adafactor_step_fits_on_card(cuda):
+    """arctic-480b at one layer of published widths (14.07B bf16
+    parameters, 28.1 GB, and as much again in gradients) takes a train step
+    with its published optimizer, Adafactor without the global clip. The
+    whole-slice update of its [1, 128, 7168, 4864] expert stacks held
+    several 17.9 GB fp32 temporaries beside them and ran out of memory
+    (74.2 GB allocated when it asked for 16.6 GiB more); the blocked
+    update holds a few 1 GB blocks. B 1 x S 512: the parameters and
+    gradients set the peak."""
+    import gc
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.optim import OptimizerConfig, build_optimizer
+    from repro_torch.train import TrainConfig as LmTrainConfig
+    from repro_torch.train import make_train_step, train_state_init
+    cfg = registry.get_config("arctic-480b", mask_samples=4, remat="full",
+                              n_layers=1)
+    pick = dryrun.pick_optimizer(registry.get_config("arctic-480b"))
+    assert (pick.name, pick.clip_norm) == ("adafactor", 0.0)
+    model = lm_model.build_model(cfg)
+    opt = build_optimizer(OptimizerConfig(
+        name=pick.name, clip_norm=pick.clip_norm, lr=3e-4, warmup_steps=2))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = train_state_init(model, opt, torch.Generator(cuda).manual_seed(0),
+                             device=cuda)
+    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=512,
+                        global_batch=1)
+    state, metrics = make_train_step(model, opt, LmTrainConfig())(
+        state, lm_batch(data, 0, cuda))
+    assert np.isfinite(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    assert peak < torch.cuda.get_device_properties(cuda).total_memory
+    assert int(state["opt"]["step"]) == 1
+    del state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def test_wrappers_refuse_grad_operands_on_card(cuda):
